@@ -10,10 +10,10 @@ Phases, each fatal when its check fails:
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. build the hand-written CUDA kernels from ops/csrc (nvcc, sm_90a);
 3. hold each kernel against its plain PyTorch version on the card at ragged
-   shapes (n ∈ {1001, 50 000}, p no multiple of anything, r ∈ {1, 8, 64,
-   137}, 3% missing codes, one all-missing SNP);
+   shapes (n ∈ {1001, 50 000}, p no multiple of anything, r ∈ WIDTHS_RAGGED,
+   3% missing codes, one all-missing SNP);
 4. at the main path's shapes (50 000 individuals × 262 144 SNPs, r ∈
-   {8, 64, 137}): check each kernel against its plain version again and time it
+   WIDTHS_MAIN): check each kernel against its plain version again and time it
    (CUDA events, median of 10) beside its bound, its plain version and one
    ``torch.matmul`` on the unpacked f32 W (a yardstick the port never
    calls);
@@ -45,6 +45,13 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N = 50000            # BASELINE config 3's individuals: the main path's n
 P_KERNELS = 262144   # SNP rows of the kernel timing phase
+# operand widths the main path launches: 2 (shifted Lanczos on [X y]), 8
+# (CG blocks padded to 8), 16 (the s0 estimate), 32 (the logdet probe
+# Lanczos), 64 and ~137 (probe Lanczos and stat rows); between them they
+# take every tiling of the kernels (BN = 8, 32 and 64, packed_common.cuh)
+# with the split count of packed_tdot that goes with each
+WIDTHS_MAIN = (2, 8, 16, 32, 64, 137)
+WIDTHS_RAGGED = (1,) + WIDTHS_MAIN
 
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth and fp32 outside the tensor
 # cores (the kernels run IEEE fp32 FMAs on the CUDA cores)
@@ -196,7 +203,7 @@ def ragged_phase(torch, packed, dev, seed: int) -> dict:
         check(means[0].item() == 1.0, "all-missing SNP must get mean 1.0")
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
-        for r in (1, 8, 64, 137):
+        for r in WIDTHS_RAGGED:
             A = torch.randn((n, r), generator=gen, device=dev)
             T = torch.randn((p, r), generator=gen, device=dev)
             D = packed.packed_dot(stack, A, means, n)
@@ -233,7 +240,7 @@ def timing_phase(torch, packed, dev, n: int, p: int, seed: int) -> dict:
     nw = stack.shape[1]
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 1)
-    widths = (8, 64, 137)
+    widths = WIDTHS_MAIN
     ops = {
         "packed_dot": (lambda X: packed.packed_dot(stack, X[0], means, n),
                        lambda X: packed.packed_dot_plain(stack, X[0], means,
@@ -333,14 +340,13 @@ def main_path_phase(torch, ep, packed, tmp: str, n: int, p: int, seed: int,
     print(f"cohort written in {time.perf_counter() - t0:.1f} s; planted QTL "
           f"{c.qtl_idx.tolist()}", flush=True)
     stack_gb = p * packed.words_per_row(n) * 4 / 1e9
-    cfg = ep.EagleConfig(device_cache_gb=max(8.0, stack_gb / 0.9 + 1.0))
     log = os.path.join(tmp, "scan.jsonl")
     handle = ep.GenoHandle(n=n, p=p, source="cohort", store_dir=c.store_dir)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     packed.reset_launches()
     t0 = time.perf_counter()
-    res = ep.am("y", handle, {"y": c.y}, maxit=3, engine="auto", config=cfg,
+    res = ep.am("y", handle, {"y": c.y}, maxit=3, engine="auto",
                 log_jsonl=log)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0

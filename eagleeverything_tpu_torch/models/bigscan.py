@@ -7,8 +7,7 @@ SNP-sharded genotype tiles (reference hot-loop machinery re-aimed at a
 new call site; no new distributed primitives).
 
 Pieces:
-- :func:`blocked_cg`       — H⁻¹·B for a block of RHS (H = K/s0 + δI)
-- :func:`slq_logdet`       — log|H| by Hutchinson + Lanczos quadrature
+- :func:`slq_logdet`      — log|H| by Hutchinson + Lanczos quadrature
   (common random probes across all δ so likelihood DIFFERENCES are smooth)
 - :func:`reml_maximize_matfree` — the 1-D δ profile with the matrix-free
   LL evaluator (same grid+refine semantics as reml_core)
@@ -25,9 +24,10 @@ tests validate selection equality against the exact engine at moderate n.
 
 Every Lanczos recurrence here runs on the host in float64 over the
 backend's kernel matvec (engine_torch.TiledScan: two hand-written kernel
-launches on the device per matvec); only the shifted CG solves keep their
-block state on the device (``MatfreeContext.device_solve``). The
-multi-trait lockstep scan is not part of this package yet.
+launches on the device per matvec); every CG solve H⁻¹·B keeps its block
+state on the device (``MatfreeContext.device_solve``, the backend's
+``device_cg``). The multi-trait lockstep scan and the record-level Zmat
+design are not part of this package yet.
 """
 
 from __future__ import annotations
@@ -48,57 +48,6 @@ Matvec = Callable[[np.ndarray], np.ndarray]  # (n, r) -> (n, r)
 # ---------------------------------------------------------------------------
 # Krylov primitives
 # ---------------------------------------------------------------------------
-
-
-def blocked_cg(
-    matvec_h: Matvec, B: np.ndarray, tol: float = 1e-8, maxiter: int = 400,
-    x0: Optional[np.ndarray] = None,
-) -> np.ndarray:
-    """Solve H·X = B column-blocked (classic CG, per-column scalars).
-
-    One ``matvec_h`` per iteration serves every RHS column; columns that
-    have converged are frozen (their α/β forced to 0) so late stragglers
-    don't perturb finished solutions. ``x0`` warm-starts the iteration
-    (convergence is still measured against ‖B‖, so the result meets the
-    same relative tolerance as a cold solve).
-    """
-    B = np.asarray(B, dtype=np.float64)
-    if x0 is not None:
-        X = np.array(x0, dtype=np.float64, copy=True)
-        R = B - matvec_h(X)
-    else:
-        X = np.zeros_like(B)
-        R = B.copy()
-    P = R.copy()
-    rs = np.sum(R * R, axis=0)
-    b_norm2 = np.maximum(np.sum(B * B, axis=0), 1e-300)
-    # stall guard: with an f32 device matvec underneath, the reachable
-    # residual floors near f32 noise — once no active column has
-    # QUARTERED its norm² within 10 iterations, further matvecs (each a
-    # full store pass) buy nothing
-    floor = rs.copy()
-    since_progress = 0
-    for _ in range(maxiter):
-        active = rs > tol * tol * b_norm2
-        if not active.any():
-            break
-        HP = matvec_h(P)
-        pHp = np.sum(P * HP, axis=0)
-        alpha = np.where(active & (pHp > 0), rs / np.maximum(pHp, 1e-300), 0.0)
-        X += P * alpha[None, :]
-        R -= HP * alpha[None, :]
-        rs_new = np.sum(R * R, axis=0)
-        beta = np.where(active, rs_new / np.maximum(rs, 1e-300), 0.0)
-        P = R + P * beta[None, :]
-        rs = rs_new
-        if np.all(rs >= 0.25 * floor):
-            since_progress += 1
-            if since_progress >= 10:
-                break
-        else:
-            since_progress = 0
-        floor = np.minimum(floor, rs)
-    return X
 
 
 def _lanczos(matvec_h: Matvec, Z: np.ndarray, m: int, reorth: bool = False,
@@ -182,7 +131,7 @@ class ShiftedKrylov:
             w, Q = np.linalg.eigh(T)
             self.w[:, j] = w
             self.Q[j] = Q
-        # the kernel is PSD by construction (K = W·Wᵀ/s0, or Z·K·Zᵀ);
+        # the kernel is PSD by construction (K = W·Wᵀ/s0);
         # negative Ritz values are pure f32 Lanczos noise, and 1/(w+δ)
         # at small δ turns them into huge negative solve components that
         # corrupt the REML profile's small-δ end (measured at 50k×1M:
@@ -276,6 +225,10 @@ class MatfreeContext:
     kernel_matvec: Matvec       # V ↦ K_norm·V  (normalized kernel)
     n: int
     probes: np.ndarray          # (n, r) Rademacher, fixed for the scan
+    # device-resident CG: (B, delta, tol, maxiter, x0=) -> X
+    # (engine_torch.TiledScan.device_cg with s0 bound) — the X/R/P block
+    # state stays on the device, the host reads (r,) norms per step
+    device_solve: Callable[..., np.ndarray]
     lanczos_m: int = 40
     cg_tol: float = 1e-8
     cg_maxiter: int = 400
@@ -287,10 +240,6 @@ class MatfreeContext:
     # decision accuracy and halves the dominant per-iteration store work
     solve_m_refit: int = 64
     cache_max_bytes: int = 2 << 30   # per-cache basis budget (V is m·n·r f64)
-    # device-resident CG: (B, delta, tol, maxiter) -> X
-    # (engine_torch.TiledScan.device_cg partial'd with s0) — the X/R/P
-    # block state stays on the device, the host reads (r,) norms per step
-    device_solve: Optional[Callable[..., np.ndarray]] = None
     _logdet_sk: Optional[ShiftedKrylov] = dataclasses.field(
         default=None, init=False, repr=False)
     _isqrt_sk: Optional[ShiftedKrylov] = dataclasses.field(
@@ -303,17 +252,13 @@ class MatfreeContext:
 
     def solve_block(self, delta: float, B: np.ndarray,
                     x0: Optional[np.ndarray] = None) -> np.ndarray:
-        """H(δ)⁻¹·B — one device dispatch when a device solver is wired,
-        else the streamed host CG. ``x0`` (e.g. a cached Krylov solve at
-        the same δ) warm-starts either path; the result meets the same
-        relative tolerance as a cold solve."""
+        """H(δ)⁻¹·B by the device CG. ``x0`` (e.g. a cached Krylov solve
+        at the same δ) warm-starts it; the result meets the same relative
+        tolerance as a cold solve."""
         if x0 is not None and x0.shape != B.shape:
             x0 = None
-        if self.device_solve is not None:
-            return self.device_solve(B, delta, self.cg_tol, self.cg_maxiter,
-                                     x0=x0)
-        return blocked_cg(self.h_matvec(delta), B,
-                          tol=self.cg_tol, maxiter=self.cg_maxiter, x0=x0)
+        return self.device_solve(B, delta, self.cg_tol, self.cg_maxiter,
+                                 x0=x0)
 
     def logdet(self, delta: float) -> float:
         """log|K+δI| from the scan-wide probe Lanczos (built once;
@@ -463,7 +408,6 @@ def score_sweep_matfree(
     diag_probes: int = 128,
     exact_topk: int = 64,
     column_f64: Optional[Callable[[int], np.ndarray]] = None,
-    Z: Optional[np.ndarray] = None,
     guard_sigmas: float = 4.0,
     max_escalation_rounds: int = 4,
     exclude: Optional[list[int]] = None,
@@ -476,7 +420,7 @@ def score_sweep_matfree(
       t_j = â_j² / (σ²_g·vara_j),  â_j = w_jᵀ·P̃y,
       vara_j = w_jᵀH⁻¹w_j − u_jᵀ(XᵀH⁻¹X)⁻¹u_j,  u_j = (H⁻¹X)ᵀw_j
 
-    - P̃y and H⁻¹X: blocked CG (exact to tolerance).
+    - P̃y and H⁻¹X: the device CG (exact to tolerance).
     - â and u for ALL p SNPs: one streamed sweep_dots pass.
     - diag(WᵀH⁻¹W): Hutchinson — E_z[(WᵀH^(-1/2)z)²] with H^(-1/2)z by
       Lanczos; one sweep_dots pass over the probe block.
@@ -560,17 +504,15 @@ def score_sweep_matfree(
         probes = rng.choice((-1.0, 1.0), size=(n, diag_probes))
         HZp = ctx.isqrt_probes(fit.delta, probes)
 
-        # one device pass computes all per-SNP statistics; with an
-        # incidence matrix the effective sweep columns are Z·w_j, so dots
-        # against record-level vectors become Wᵀ·(Zᵀ·A). On a multi-host
+        # one device pass computes all per-SNP statistics. On a multi-host
         # backend the rows are this process's SNP range. The resident
         # packed stack reduces the probe block on device
         # (engine_torch.TiledScan.matfree_stat_rows: (p, q+3) transferred,
         # not (p, 1+q+r)).
         XtHiX_inv = np.linalg.inv(XtHiX)
-        A = np.column_stack([Py, HiX, HZp])       # (n_rec, 1+q+r)
+        A = np.column_stack([Py, HiX, HZp])       # (n, 1+q+r)
         ahat_l, U_l, diag_l, proj_l = backend.matfree_stat_rows(
-            Z.T @ A if Z is not None else A, q, XtHiX_inv)
+            A, q, XtHiX_inv)
         if ck_file is not None:
             tmp = ck_file + f".tmp.{os.getpid()}"
             with open(tmp, "wb") as f:
@@ -613,8 +555,6 @@ def score_sweep_matfree(
         in multi-host — identical calls on every host) + the (â, u) rows
         gathered from their owning host."""
         Wsel = np.column_stack([column_f64(int(j)) for j in idx])
-        if Z is not None:
-            Wsel = Z @ Wsel          # record-level effective columns
         HiW = ctx.solve_block(fit.delta, Wsel)
         diag_exact = np.sum(Wsel * HiW, axis=0)
         rows = np.zeros((len(idx), 1 + q))
@@ -731,13 +671,12 @@ def gls_wald_stats_matfree(
     )
 
 
-def make_context(backend, n: int, Z: Optional[np.ndarray] = None,
-                 probes: int = 32, seed: int = 4242,
+def make_context(backend, n: int, probes: int = 32, seed: int = 4242,
                  lanczos_m: int = 40,
                  s0: Optional[float] = None) -> MatfreeContext:
     """Build a MatfreeContext over a scan backend: Hutchinson s0 estimate,
-    normalized (optionally Z-wrapped) kernel matvec, and the device CG
-    hook for Z-free designs (shared by the scan and summary)."""
+    normalized kernel matvec, and the device CG hook (shared by the scan
+    and summary)."""
     n_ind = backend.src.n
     if s0 is None:
         # mean diag of MMt = E_j ‖w_j‖² — estimate with one probe pass:
@@ -748,22 +687,12 @@ def make_context(backend, n: int, Z: Optional[np.ndarray] = None,
         s0 = float(np.mean(np.sum(Zp * KZ, axis=0)) / n_ind)
     s0 = s0 if s0 > 0 else 1.0
 
-    if Z is None:
-        def kernel_matvec(V):
-            return backend.kernel_matvec(V) / s0
-    else:
-        Z = np.asarray(Z, dtype=np.float64)
+    def kernel_matvec(V):
+        return backend.kernel_matvec(V) / s0
 
-        def kernel_matvec(V):
-            return Z @ backend.kernel_matvec(Z.T @ V) / s0
-
-    # Z-free designs solve on the device; a Zmat design keeps the
-    # host-wrapped kernel above and the host blocked CG
-    device_solve = None
-    if Z is None:
-        def device_solve(B, delta, tol, maxiter, x0=None, _s0=s0):
-            return backend.device_cg(B, delta, _s0, tol=tol,
-                                     maxiter=maxiter, x0=x0)
+    def device_solve(B, delta, tol, maxiter, x0=None):
+        return backend.device_cg(B, delta, s0, tol=tol, maxiter=maxiter,
+                                 x0=x0)
 
     rng = np.random.default_rng(seed)
     return MatfreeContext(
@@ -799,16 +728,10 @@ def forward_select_matfree(
     column_f64: Optional[Callable[[int], np.ndarray]] = None,
     quiet: bool = True,
     log_jsonl: Optional[str] = None,
-    Z: Optional[np.ndarray] = None,
     ckpt_dir: Optional[str] = None,
     resume: bool = False,
 ) -> AMResult:
-    """The AM loop with matrix-free REML + sweep (biobank n-scale mode).
-
-    With an incidence matrix Z (n_rec × n_ind), the record-level kernel
-    K_eff = Z·K·Zᵀ is reached matrix-free too:
-    K_eff·V = Z·(Wᵀ(W·(Zᵀ·V)))/s0 — Z never touches the device kernels.
-    """
+    """The AM loop with matrix-free REML + sweep (biobank n-scale mode)."""
     from eagleeverything_tpu_torch.utils import distributed
     from eagleeverything_tpu_torch.utils.logging import Phase, ScanLogger
 
@@ -818,12 +741,10 @@ def forward_select_matfree(
     p = getattr(backend, "p_global", backend.src.p)
     logger = ScanLogger(quiet=quiet, jsonl_path=log_jsonl,
                         is_host0=distributed.is_host0())
-    if Z is not None:
-        Z = np.asarray(Z, dtype=np.float64)
 
     # the first kernel matvec (the s0 estimate) builds the resident stack
     with Phase(logger, "context"):
-        ctx = make_context(backend, n, Z=Z, probes=probes,
+        ctx = make_context(backend, n, probes=probes,
                            lanczos_m=lanczos_m, s0=s0)
     ctx.solve_m = solve_m
     ctx.solve_m_refit = solve_m_refit
@@ -869,8 +790,7 @@ def forward_select_matfree(
         if state is not None:
             selected = [int(j) for j in state["selected"]]
             for j in selected:
-                col = column_f64(j)
-                X = np.hstack([X, (Z @ col if Z is not None else col)[:, None]])
+                X = np.hstack([X, column_f64(j)[:, None]])
             resume_delta = state.get("delta")
             if meta.get("fit_exact"):
                 # the checkpoint carries the exact CG-polished fit at this
@@ -916,7 +836,7 @@ def forward_select_matfree(
             t, cand, esc = score_sweep_matfree(
                 ctx, backend, y, X, fit,
                 diag_probes=diag_probes, exact_topk=exact_topk,
-                column_f64=column_f64, Z=Z, exclude=selected,
+                column_f64=column_f64, exclude=selected,
                 sol0=sk_model.solve(fit.delta) if sk_model else None,
                 sweep_ckpt=ckpt_dir,
             )
@@ -935,8 +855,6 @@ def forward_select_matfree(
         w_col = column_f64(cand) if column_f64 is not None else None
         if w_col is None:
             raise ValueError("forward_select_matfree needs column_f64")
-        if Z is not None:
-            w_col = Z @ w_col
         X_new = np.hstack([X, w_col[:, None]])
         with Phase(logger, "refit"):
             fit_new, sk_new = reml_maximize_matfree(ctx, y, X_new,

@@ -202,17 +202,18 @@ class TiledScan:
         self.tile_snps = config.resolve_snp_tile(src.n,
                                                  -(-src.p // 128) * 128)
         self.nw = packed.words_per_row(src.n)
-        # the packed stack is the only matrix-free path on the device: a
-        # stack above the budget is refused, never streamed
-        packed_bytes = src.p * self.nw * 4
-        budget = config.device_cache_gb * 1e9 * 0.9
-        if packed_bytes > budget:
-            raise ValueError(
-                f"the packed stack of {src.n} individuals x {src.p} SNPs "
-                f"takes {packed_bytes / 1e9:.3f} GB, above 90% of "
-                f"device_cache_gb={config.device_cache_gb} "
-                f"({budget / 1e9:.3f} GB); raise device_cache_gb")
         if self.device.type == "cuda":
+            # the packed stack is the only matrix-free path on the card: a
+            # stack larger than the card's free memory is refused, never
+            # streamed
+            packed_bytes = src.p * self.nw * 4
+            free, total = torch.cuda.mem_get_info(self.device)
+            if packed_bytes > free:
+                raise ValueError(
+                    f"the packed stack of {src.n} individuals x {src.p} "
+                    f"SNPs takes {packed_bytes / 1e9:.3f} GB, more than the "
+                    f"{free / 1e9:.3f} GB free of {total / 1e9:.3f} GB on "
+                    f"{self.device}")
             # IEEE fp32 on the card: no TF32 in any matmul or convolution
             # (the kernels and the decision path's inputs are full fp32)
             torch.backends.cuda.matmul.allow_tf32 = False

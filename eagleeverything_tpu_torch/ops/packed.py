@@ -206,9 +206,11 @@ def packed_dot(Wp: torch.Tensor, A: torch.Tensor, means: torch.Tensor,
     p, nw = Wp.shape
     r = A.shape[1]
     D = torch.empty((p, r), dtype=torch.float32, device=A.device)
-    rc = lib.ee_packed_dot(Wp.data_ptr(), A.data_ptr(), means.data_ptr(),
-                           D.data_ptr(), p, nw, n, r,
-                           torch.cuda.current_stream(A.device).cuda_stream)
+    # launch on the operands' card, whichever card is current
+    with torch.cuda.device(Wp.device):
+        rc = lib.ee_packed_dot(Wp.data_ptr(), A.data_ptr(), means.data_ptr(),
+                               D.data_ptr(), p, nw, n, r,
+                               torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "packed_dot", lib)
     LAUNCHES["packed_dot"] += 1
     return D
@@ -223,14 +225,16 @@ def packed_tdot(Wp: torch.Tensor, T: torch.Tensor, means: torch.Tensor,
     lib = _tdot_lib()
     p, nw = Wp.shape
     r = T.shape[1]
-    nsplit = lib.ee_packed_tdot_splits(p, n, r)
-    out = torch.empty((n, r), dtype=torch.float32, device=T.device)
-    part = (torch.empty((nsplit, n, r), dtype=torch.float32, device=T.device)
-            if nsplit > 1 else out)
-    rc = lib.ee_packed_tdot(Wp.data_ptr(), T.data_ptr(), means.data_ptr(),
-                            part.data_ptr(), out.data_ptr(), p, nw, n, r,
-                            nsplit,
-                            torch.cuda.current_stream(T.device).cuda_stream)
+    # the split count reads the current card's SM count, and the launch
+    # goes to the current card: make that the operands' card
+    with torch.cuda.device(Wp.device):
+        nsplit = lib.ee_packed_tdot_splits(p, n, r)
+        out = torch.empty((n, r), dtype=torch.float32, device=T.device)
+        part = (torch.empty((nsplit, n, r), dtype=torch.float32,
+                            device=T.device) if nsplit > 1 else out)
+        rc = lib.ee_packed_tdot(Wp.data_ptr(), T.data_ptr(), means.data_ptr(),
+                                part.data_ptr(), out.data_ptr(), p, nw, n, r,
+                                nsplit, torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "packed_tdot", lib)
     LAUNCHES["packed_tdot"] += 1
     return out

@@ -37,8 +37,10 @@ class EagleConfig:
         ~512 MB of float32 per tile.
       availmem_gb: host-RAM budget per block for out-of-core streaming —
         the reference's ``availmemGb`` knob.
-      device_cache_gb: device-memory budget for the resident 2-bit packed
-        stack, which may take 90% of it; a larger stack is refused.
+      device_cache_gb: the JAX package's device budget for its resident
+        packed stack. This package does not read it: the stack is the only
+        matrix-free path here, so it is held against the card's free memory
+        (engine_torch.TiledScan) and refused when it does not fit.
       host_eigh_max_n: the exact engine's host/device eigendecomposition
         threshold (that engine is not in this package yet).
       matfree_min_n: ``am(engine="auto")`` switches to the matrix-free

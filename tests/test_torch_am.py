@@ -122,9 +122,6 @@ def test_krylov_primitives_match_jax():
     np.testing.assert_allclose(
         bigscan.lanczos_isqrt_apply(mv, Z, m=40),
         jax_bigscan.lanczos_isqrt_apply(mv, Z, m=40), rtol=1e-10, atol=1e-12)
-    np.testing.assert_allclose(bigscan.blocked_cg(mv, Z, tol=1e-10),
-                               jax_bigscan.blocked_cg(mv, Z, tol=1e-10),
-                               rtol=1e-12, atol=1e-12)
     assert bigscan.slq_logdet(mv, n, Z, m=30) == pytest.approx(
         jax_bigscan.slq_logdet(mv, n, Z, m=30), rel=1e-12)
     sk = bigscan.ShiftedKrylov(lambda V: M @ (M.T @ V) / n, Z, m=60,

@@ -41,7 +41,7 @@ def _scan(n: int, device) -> tuple:
 
 
 @pytest.mark.parametrize("n", [1001, 1015])
-@pytest.mark.parametrize("r", [1, 8, 33, 137])
+@pytest.mark.parametrize("r", [1, 2, 8, 16, 32, 33, 137])
 def test_kernels_match_plain(cuda, n, r):
     """fp32 sums in another order than the plain torch.matmul: the rounding
     is far below 1e-4 of the result's scale."""

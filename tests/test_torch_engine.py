@@ -125,11 +125,20 @@ def test_stack_from_every_source_is_the_same(pallas_store, scans):
                                   direct._pmeans.numpy())
 
 
-def test_stack_above_budget_is_refused(pallas_store):
+def test_stack_above_budget_is_refused(pallas_store, monkeypatch):
+    """The stack (3000 × 16 words = 192 000 bytes) is held against the
+    card's free memory, not against a configured budget."""
     d, _ = pallas_store
-    with pytest.raises(ValueError, match="device_cache_gb"):
-        engine_torch.TiledScan(engine_torch.StoreTileSource(d),
-                               EagleConfig(device_cache_gb=1e-4), "cpu")
+    src = engine_torch.StoreTileSource(d)
+    free = {"bytes": 191_999}
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda device=None: (free["bytes"], 80 * 10**9))
+    with pytest.raises(ValueError, match="more than the 0.000 GB free"):
+        engine_torch.TiledScan(src, EagleConfig(), "cuda")
+    free["bytes"] = 192_000
+    sc = engine_torch.TiledScan(src, EagleConfig(device_cache_gb=1e-9),
+                                "cuda")
+    assert sc._pstack is None          # nothing is allocated on the card yet
 
 
 def _files(d):
