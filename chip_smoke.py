@@ -9,9 +9,12 @@ Phases, each fatal when its check fails:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. build the hand-written CUDA kernels from ops/csrc (nvcc, sm_90a);
+2 also fails when ptxas reports spilled registers in packed_tdot;
 3. hold each kernel against its plain PyTorch version on the card at ragged
-   shapes (n ∈ {1001, 50 000}, p no multiple of anything, r ∈ WIDTHS_RAGGED,
-   3% missing codes, one all-missing SNP);
+   shapes (SHAPES_RAGGED: n no multiple of 16, p no multiple of anything,
+   one shape with a single split of packed_tdot; r ∈ WIDTHS_RAGGED, every
+   column tiling and its edge; 3% missing codes, one all-missing SNP), and
+   packed_tdot against itself bit for bit;
 4. at the main path's shapes (50 000 individuals × 262 144 SNPs, r ∈
    WIDTHS_MAIN): check each kernel against its plain version again and time it
    (CUDA events, median of 10) beside its bound, its plain version and one
@@ -35,6 +38,7 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -48,19 +52,30 @@ P_KERNELS = 262144   # SNP rows of the kernel timing phase
 # operand widths the main path launches: 2 (shifted Lanczos on [X y]), 8
 # (CG blocks padded to 8), 16 (the s0 estimate), 32 (the logdet probe
 # Lanczos), 64 and ~137 (probe Lanczos and stat rows); between them they
-# take every tiling of the kernels (BN = 8, 32 and 64, packed_common.cuh)
-# with the split count of packed_tdot that goes with each
+# take every tiling of packed_dot (BN = 8, 32 and 64, packed_common.cuh)
+# and of packed_tdot (N = 8, 16, 32, 64 and 144, packed_tdot.cu) with the
+# split count of packed_tdot that goes with each
 WIDTHS_MAIN = (2, 8, 16, 32, 64, 137)
-WIDTHS_RAGGED = (1,) + WIDTHS_MAIN
+# and the edges of every column tiling: one column past a tile (9, 17, 33,
+# 65, 145: 145 takes two 144-wide tiles of packed_tdot) and a full one (144)
+WIDTHS_RAGGED = (1, 2, 8, 9, 16, 17, 32, 33, 64, 65, 137, 144, 145)
+# (n, p) of the ragged phase: n no multiple of 16 with a short last
+# genotype tile, p no multiple of the 32-row k-step; p = 201 < 256 rows
+# gives packed_tdot a single split (no reduce launch)
+SHAPES_RAGGED = ((1001, 20011), (50000, 3001), (50000, 201))
 
-# NVIDIA H100 SXM data sheet: HBM3 bandwidth and fp32 outside the tensor
-# cores (the kernels run IEEE fp32 FMAs on the CUDA cores)
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth, fp32 outside the tensor cores
+# (packed_dot runs IEEE fp32 FMAs on the CUDA cores) and dense bf16 on the
+# tensor cores (packed_tdot: three bf16 products per fp32 product)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+BF16_TC_FLOPS_PER_S = 989e12
 # kernel vs plain version, as max |kernel − plain| / max |plain|: both are
 # fp32 sums of up to 262 144 terms taken in different orders; the rounding
 # of such a sum is ~√K·2⁻²⁴ of its scale (≈3e-5 at K = 262 144, worst
-# case), so 1e-4 passes every correct kernel and fails any wrong term
+# case), and packed_tdot's bf16x3 products add about 2⁻¹⁷ of each term
+# (2.8e-6 of scale when emulated on the CPU, tests/test_torch_packed.py),
+# so 1e-4 passes every correct kernel and fails any wrong term
 TOL = 1e-4
 KERNELS = {
     "packed_dot": {
@@ -142,20 +157,32 @@ def timed(torch, fn, reps: int, warmup: int):
     return out, float(np.median(times))
 
 
-def bound(kind: str, n: int, p: int, r: int, nw: int) -> tuple[float, str]:
-    """Least time (ms) the card could take for the work, and what bounds
-    it: each input read once and each output written once over the HBM
-    rate, against 2 FLOPs a multiply-add over the fp32 peak."""
+def bound(kind: str, n: int, p: int, r: int,
+          nw: int) -> tuple[float, str, str]:
+    """Least time (ms) the card could take for the work, whether bytes or
+    operations bound it, and the unit that sets it: each input read once
+    and each output written once over the HBM rate, against the FLOPs over
+    the peak of the unit the kernel runs them on (packed_dot: 2·p·n·r on
+    the fp32 CUDA cores; packed_tdot: 3·2·p·n·r, its three bf16 split
+    products, on the bf16 tensor cores). kernel_matvec is the two launches
+    in turn, so its bound is the sum of theirs."""
+    if kind == "kernel_matvec":
+        parts = [bound(k, n, p, r, nw) for k in ("packed_dot", "packed_tdot")]
+        return (sum(b[0] for b in parts),
+                " + ".join(b[1] for b in parts),
+                " + ".join(b[2] for b in parts))
     stack, means = p * nw * 4, p * 4
-    if kind == "packed_dot":          # A (n, r) → D (p, r)
-        nbytes, flops = stack + means + n * r * 4 + p * r * 4, 2 * p * n * r
-    elif kind == "packed_tdot":       # T (p, r) → (n, r)
-        nbytes, flops = stack + means + p * r * 4 + n * r * 4, 2 * p * n * r
-    else:                             # kernel_matvec: V (n, r) → (n, r)
-        nbytes, flops = stack + means + 2 * n * r * 4, 4 * p * n * r
+    nbytes = stack + means + (n + p) * r * 4   # A→D or T→out: (n+p)·r f32
+    if kind == "packed_dot":
+        flops, peak, unit = 2 * p * n * r, FP32_FLOPS_PER_S, "fp32 CUDA cores"
+    else:
+        flops, peak, unit = (3 * 2 * p * n * r, BF16_TC_FLOPS_PER_S,
+                             "bf16 tensor cores")
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    t_ops = flops / peak * 1e3
+    if t_ops >= t_bytes:
+        return t_ops, "operations", unit
+    return t_bytes, "bytes", "HBM"
 
 
 # ---------------------------------------------------------------------------
@@ -187,10 +214,15 @@ def build_phase(build) -> None:
         build.load(name)
         rep = report[name]
         lines = [ln.strip() for ln in rep["ptxas"].splitlines()
-                 if "registers" in ln or "spill" in ln or "reused" in ln]
+                 if "entry function" in ln or "registers" in ln
+                 or "spill" in ln or "reused" in ln]
         print(f"{name}: nvcc {rep['seconds']:.1f} s")
         for ln in lines:
             print(f"  {ln}")
+        spills = [int(b) for b in re.findall(r"(\d+) bytes spill",
+                                             rep["ptxas"])]
+        check(name != "packed_tdot" or not any(spills),
+              f"{name}: ptxas reports spilled registers")
     print(f"build wall {time.perf_counter() - t0:.1f} s", flush=True)
 
 
@@ -198,7 +230,7 @@ def ragged_phase(torch, packed, dev, seed: int) -> dict:
     phase("3. kernels vs plain versions at ragged shapes "
           f"(tolerance {TOL:g} of the plain result's scale)")
     worst = {k: 0.0 for k in ("packed_dot", "packed_tdot", "kernel_matvec")}
-    for n, p in ((1001, 20011), (50000, 3001)):
+    for n, p in SHAPES_RAGGED:
         stack, means = random_stack(torch, packed, n, p, seed + n, dev)
         check(means[0].item() == 1.0, "all-missing SNP must get mean 1.0")
         gen = torch.Generator(device=dev)
@@ -235,7 +267,8 @@ def timing_phase(torch, packed, dev, n: int, p: int, seed: int) -> dict:
     phase(f"4. kernels at the main path's shapes: n={n}, p={p} "
           "(CUDA events: kernels and torch.matmul median of 10, plain "
           "versions median of 3; bound from the H100 SXM data sheet: "
-          "3.35 TB/s HBM, 67 TFLOP/s fp32)")
+          "3.35 TB/s HBM, 67 TFLOP/s fp32 for packed_dot, 989 TFLOP/s "
+          "bf16 tensor cores for packed_tdot's three split products)")
     stack, means = random_stack(torch, packed, n, p, seed, dev)
     nw = stack.shape[1]
     gen = torch.Generator(device=dev)
@@ -265,10 +298,10 @@ def timing_phase(torch, packed, dev, n: int, p: int, seed: int) -> dict:
             err, rel = rel_err(torch, k_out, p_out)
             check(rel <= TOL, f"{name} disagrees with its plain version at "
                   f"n={n} p={p} r={r}: rel {rel:.3e} > {TOL:g}")
-            b_ms, b_by = bound(name, n, p, r, nw)
+            b_ms, b_by, b_unit = bound(name, n, p, r, nw)
             res[name][r] = {"max_abs_err": err, "rel_err": rel, "ms": k_ms,
                             "plain_ms": p_ms, "bound_ms": b_ms,
-                            "bound_by": b_by}
+                            "bound_by": b_by, "bound_unit": b_unit}
             outs[name, r] = k_out
             del p_out
     # the yardstick: one torch.matmul on the already-unpacked f32 W
@@ -296,7 +329,8 @@ def timing_phase(torch, packed, dev, n: int, p: int, seed: int) -> dict:
             print(f"{name:14s} r={r:4d}  kernel {m['ms']:9.3f} ms  plain "
                   f"{m['plain_ms']:9.3f} ms  torch.matmul on f32 W "
                   f"{m['library_ms']:9.3f} ms  bound {m['bound_ms']:8.3f} ms "
-                  f"({m['bound_by']}, {m['bound_ms'] / m['ms']:.1%} of it)  "
+                  f"({m['bound_by']} on {m['bound_unit']}, "
+                  f"{m['bound_ms'] / m['ms']:.1%} of it)  "
                   f"max abs err {m['max_abs_err']:.2e}", flush=True)
     return res
 
@@ -417,6 +451,7 @@ def run(args) -> None:
             "max_abs_err": max(v["max_abs_err"] for v in by_r.values()),
             "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "bound_unit": m["bound_unit"],
             "library_ms": m["library_ms"],
             "shape": {"n": N, "p": P_KERNELS, "r": head},
             "by_r": {str(r): v for r, v in by_r.items()}})

@@ -7,10 +7,16 @@
 // allowed to reach an output: the kernels zero the skinny operand there
 // (packed_dot) or drop those output rows (packed_tdot).
 //
-// Both kernels stage a tile of recoded genotypes and a tile of the skinny
-// operand in shared memory and run the same register-tiled fp32 FMA loop
-// on CUDA cores (mma_smem below). No tensor cores and no TF32: every
-// product and sum is IEEE fp32.
+// Which kernel runs where:
+// - packed_dot (K1) stages a tile of recoded genotypes and a tile of the
+//   skinny operand in shared memory and runs the register-tiled fp32 FMA
+//   loop below (mma_smem) on the CUDA cores: every product and sum is IEEE
+//   fp32, with the tilings of tile_width.
+// - packed_tdot (K2) runs on the bf16 tensor cores (mma.sync), with each
+//   operand split into bf16 halves so that its products keep fp32 accuracy
+//   (bf16x3, packed_tdot.cu); it takes only the constants and the pad word
+//   from this header and has its own column tilings (tdot_tile_width).
+// Neither uses TF32.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -42,8 +48,10 @@ struct Tiling {
   static_assert(TN % 4 == 0, "thread columns come in groups of four");
 };
 
-// The three tilings, chosen by the operand width r: narrow CG/Lanczos
-// blocks, mid-width blocks, and wide blocks (probe sweeps, stat rows).
+// packed_dot's three tilings, chosen by the operand width r: narrow
+// CG/Lanczos blocks, mid-width blocks, and wide blocks (probe sweeps, stat
+// rows). packed_tdot tiles its columns in steps of 8 instead
+// (packed_tdot.cu::tdot_tile_width: N = 8, 16, 32, 64 or 144).
 using TileNarrow = Tiling<1, 4, 2>;   // BN = 8
 using TileMid = Tiling<4, 4, 8>;      // BN = 32
 using TileWide = Tiling<4, 8, 8>;     // BN = 64

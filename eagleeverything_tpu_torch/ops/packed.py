@@ -17,6 +17,16 @@ take and return it in natural genotype order. Each wrapper takes its
 plain PyTorch version (unpack + ``torch.matmul``) for a tensor on the CPU
 and launches its kernel for a CUDA tensor; there is no fallback between
 the two. ``LAUNCHES`` counts kernel launches per wrapper.
+
+Numerics: ``packed_dot`` is IEEE fp32 FMAs on the CUDA cores.
+``packed_tdot`` runs on the bf16 tensor cores with fp32 accumulation and
+splits each operand into bf16 halves (W_hi + W_lo, where W_lo is nonzero
+only at missing codes; T_hi + T_lo), summing W_hi·T_hi + W_hi·T_lo +
+W_lo·T_hi: each product keeps about 2⁻¹⁷ of its fp32 value, well inside
+the 1e-4-of-scale tolerance the kernels are held to. Its wrapper allocates
+the scratch: two bf16 planes of T (rows padded to the 32-row k-step,
+columns to whole column tiles) and, for a split-K, ``nsplit·n·r`` f32
+partials that a second launch adds in a fixed order.
 """
 
 from __future__ import annotations
@@ -188,9 +198,12 @@ def _dot_lib():
 def _tdot_lib():
     from eagleeverything_tpu_torch.ops import build
     lib = build.load("packed_tdot")
-    lib.ee_packed_tdot_splits.argtypes = [ctypes.c_int] * 3
-    lib.ee_packed_tdot_splits.restype = ctypes.c_int
-    lib.ee_packed_tdot.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 \
+    for fn, nargs in (("ee_packed_tdot_splits", 3),
+                      ("ee_packed_tdot_split_rows", 1),
+                      ("ee_packed_tdot_split_cols", 1)):
+        getattr(lib, fn).argtypes = [ctypes.c_int] * nargs
+        getattr(lib, fn).restype = ctypes.c_int
+    lib.ee_packed_tdot.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 \
         + [ctypes.c_void_p]
     lib.ee_packed_tdot.restype = ctypes.c_int
     return lib
@@ -232,7 +245,12 @@ def packed_tdot(Wp: torch.Tensor, T: torch.Tensor, means: torch.Tensor,
         out = torch.empty((n, r), dtype=torch.float32, device=T.device)
         part = (torch.empty((nsplit, n, r), dtype=torch.float32,
                             device=T.device) if nsplit > 1 else out)
+        # T_hi and T_lo, written by the kernel's own pre-pass
+        split = torch.empty((2, lib.ee_packed_tdot_split_rows(p),
+                             lib.ee_packed_tdot_split_cols(r)),
+                            dtype=torch.bfloat16, device=T.device)
         rc = lib.ee_packed_tdot(Wp.data_ptr(), T.data_ptr(), means.data_ptr(),
+                                split[0].data_ptr(), split[1].data_ptr(),
                                 part.data_ptr(), out.data_ptr(), p, nw, n, r,
                                 nsplit, torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "packed_tdot", lib)

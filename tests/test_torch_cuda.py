@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
 
 from eagleeverything_tpu_torch.models import engine_torch  # noqa: E402
 from eagleeverything_tpu_torch.ops import packed  # noqa: E402
@@ -40,11 +41,17 @@ def _scan(n: int, device) -> tuple:
     return sc, sc._packed_stack(), sc._pmeans, rng
 
 
+# every column tiling of both kernels and its ragged edge: packed_dot's
+# BN = 8/32/64 and packed_tdot's N = 8/16/32/64/144 (r > 144: two tiles)
+WIDTHS = [1, 2, 8, 9, 16, 17, 32, 33, 64, 65, 137, 144, 145]
+
+
 @pytest.mark.parametrize("n", [1001, 1015])
-@pytest.mark.parametrize("r", [1, 2, 8, 16, 32, 33, 137])
+@pytest.mark.parametrize("r", WIDTHS)
 def test_kernels_match_plain(cuda, n, r):
-    """fp32 sums in another order than the plain torch.matmul: the rounding
-    is far below 1e-4 of the result's scale."""
+    """fp32 sums in another order than the plain torch.matmul, and
+    packed_tdot's bf16x3 products (about 2⁻¹⁷ of each term): both far
+    below 1e-4 of the result's scale."""
     _, Wp, means, rng = _scan(n, cuda)
     A = torch.from_numpy(rng.standard_normal((n, r)).astype(np.float32)
                          ).to(cuda)
@@ -88,3 +95,16 @@ def test_launch_counts_and_repeatability(cuda):
     torch.cuda.synchronize()
     assert torch.equal(a, b)          # split-K reduced in a fixed order
     assert packed.LAUNCHES == {"packed_dot": 1, "packed_tdot": 3}
+
+
+@pytest.mark.parametrize("r", [2, 8, 16, 32, 64, 137, 145])
+def test_packed_tdot_bitwise_repeatable(cuda, r):
+    """No float atomics: the splits are added in a fixed order, so two calls
+    on the same operands give the same bits at every column tiling."""
+    _, Wp, means, rng = _scan(1001, cuda)
+    T = torch.from_numpy(rng.standard_normal((P, r)).astype(np.float32)
+                         ).to(cuda)
+    a = packed.packed_tdot(Wp, T, means, 1001)
+    b = packed.packed_tdot(Wp, T, means, 1001)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)

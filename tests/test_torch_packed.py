@@ -162,6 +162,54 @@ def test_ragged_packed_tdot_matches_pallas(n, r):
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-4)
 
 
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 (to nearest even) and back to f32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _tdot_bf16x3(Wp, T, means, n: int, chunk: int = 32768) -> torch.Tensor:
+    """packed_tdot's tensor-core numerics with torch ops: W and T split
+    into bf16 halves, the three products W_hi·T_hi + W_hi·T_lo + W_lo·T_hi
+    (each exact in fp32) accumulated in fp32."""
+    out = torch.zeros((n, T.shape[1]), dtype=torch.float32)
+    for i0 in range(0, Wp.shape[0], chunk):
+        W = packed.recode(Wp[i0 : i0 + chunk], means[i0 : i0 + chunk], n)
+        w_hi = _bf16(W)
+        w_lo = _bf16(W - w_hi)
+        codes = packed.unpack_codes(Wp[i0 : i0 + chunk], n)
+        assert not w_lo[codes != 3].any()       # W_lo lives at missing codes
+        t_hi = _bf16(T[i0 : i0 + chunk])
+        t_lo = _bf16(T[i0 : i0 + chunk] - t_hi)
+        out += w_hi.T @ t_hi + w_hi.T @ t_lo + w_lo.T @ t_hi
+    return out
+
+
+@pytest.mark.parametrize("r", [8, 137])
+def test_packed_tdot_bf16x3_numerics(r):
+    """The split products hold packed_tdot to 1e-4 of scale at the main
+    path's contraction length, p = 262 144 (3% missing, one all-missing
+    SNP); bf16 W_hi·T_hi alone does not."""
+    n, p = 37, 262144
+    rng = np.random.default_rng(r)
+    codes = _codes(rng, p, n)
+    codes[11] = 3
+    nw = packed.words_per_row(n)
+    full = np.full((p, 16 * nw), 1, np.uint8)
+    full[:, :n] = codes
+    Wb = (full[:, 0::4] | (full[:, 1::4] << 2) | (full[:, 2::4] << 4)
+          | (full[:, 3::4] << 6)).astype(np.uint8)
+    Wp = torch.from_numpy(np.ascontiguousarray(Wb).view(np.int32))
+    means = packed.row_means(Wp, n)
+    assert means[11].item() == 1.0
+    T = torch.from_numpy(rng.standard_normal((p, r)).astype(np.float32))
+    ref = packed.packed_tdot_plain(Wp, T, means, n)
+    scale = ref.abs().max().item()
+    got = _tdot_bf16x3(Wp, T, means, n)
+    assert (got - ref).abs().max().item() <= 1e-4 * scale
+    hi_only = _bf16(packed.recode(Wp, means, n)).T @ _bf16(T)
+    assert (hi_only - ref).abs().max().item() > 1e-4 * scale
+
+
 def test_wrappers_reject_bad_operands(stacks):
     _, _, _, Wt, mt = stacks
     A = torch.zeros((N, 4))
