@@ -3,8 +3,8 @@
 Each ``.cu`` source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a
 shared library with a plain C interface, loaded with ``ctypes``. The
 libraries go to ``build/torch_kernels/`` at the root of the checkout, named
-by a hash of their sources, so an edited source is rebuilt and an unchanged
-one is reused. All sources compile in parallel, one ``nvcc`` each. Nothing
+by a hash of their sources, each beside the ptxas report of its build, so an
+edited source is rebuilt and an unchanged one is reused with its report. All sources compile in parallel, one ``nvcc`` each. Nothing
 here runs at import time: the first call to :func:`load` builds.
 """
 
@@ -44,19 +44,25 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
 
 
+def _log_path(lib: Path) -> Path:
+    return lib.with_suffix(".ptxas.txt")
+
+
 def build_all() -> dict[str, dict]:
-    """Compile every source whose library is missing, all in parallel.
+    """Compile every source whose library or ptxas report is missing, all in
+    parallel.
 
     Returns {name: {"seconds": wall of its nvcc (0.0 when reused),
-    "ptxas": nvcc's resource report}}; raises with nvcc's output when a
-    build fails."""
+    "reused": bool, "ptxas": nvcc's resource report of the build that made
+    the library}}; raises with nvcc's output when a build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     report: dict[str, dict] = {}
     procs = {}
     for name in SOURCES:
         out = _lib_path(name)
-        if out.exists():
-            report[name] = {"seconds": 0.0, "ptxas": "reused " + out.name}
+        if out.exists() and _log_path(out).exists():
+            report[name] = {"seconds": 0.0, "reused": True,
+                            "ptxas": _log_path(out).read_text()}
             continue
         tmp = out.with_suffix(f".tmp{os.getpid()}.so")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
@@ -69,8 +75,9 @@ def build_all() -> dict[str, dict]:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}.cu "
                                f"(exit {proc.returncode}):\n{log}")
+        _log_path(out).write_text(log)
         os.replace(tmp, out)
-        report[name] = {"seconds": seconds, "ptxas": log}
+        report[name] = {"seconds": seconds, "reused": False, "ptxas": log}
     return report
 
 

@@ -51,14 +51,16 @@
 // unpacked once) and r = 2 pays for 8 columns. r > 144 takes several
 // 144-wide tiles.
 //
-// Bound on an H100 SXM: 3 bf16 products of 2·p·n·r FLOPs at 989 TFLOP/s
-// against the stack's p·nw·4 bytes (plus T, means and out) at 3.35 TB/s:
-// bytes-bound up to r of about 12, operations-bound above (10.9 ms at
-// n = 50 000, p = 262 144, r = 137). What holds it above that bound on the
-// card is shared memory: each k-step moves the W tile through it twice
-// (unpack stores, ldmatrix loads) and every warp reads its B fragments,
-// about 142 KB a step at N = 144 against some 1300 cycles of MMAs, and the
-// two do not overlap. T is read again by every genotype tile (about 56 GB
+// Bound on an H100 SXM: the function's 2·p·n·r FLOPs at the dense bf16
+// tensor-core peak of 989 TFLOP/s against the stack's p·nw·4 bytes (plus T,
+// means and out) at 3.35 TB/s: bytes-bound up to r of about 37,
+// operations-bound above (3.6 ms at n = 50 000, p = 262 144, r = 137). The
+// kernel executes three such products, 3x the bound's FLOPs. Shared memory
+// is the likely limit beyond that: each k-step moves the W tile through it
+// twice (unpack stores, ldmatrix loads) and every warp reads its B
+// fragments, about 142 KB a step at N = 144 against some 1300 cycles of
+// MMAs (counted from the code, not measured). T is read again by every
+// genotype tile (about 56 GB
 // of L2 traffic at r = 137, 391 tiles); the grid walks the genotype tiles
 // fastest, so the blocks resident together belong to one split and stream
 // the same T rows through L2. A 256-genotype tile would halve that traffic
@@ -184,10 +186,10 @@ __device__ __forceinline__ void mma_bf16_zero(float (&d)[4],
 
 // c += d with round-to-nearest fp32 adds.
 //
-// The tensor cores do not add into their accumulator in IEEE fp32: chained
-// over a split's tens of thousands of rows the sum drifts far beyond fp32
-// rounding (on an H100, to near the 1e-4 tolerance at p = 262 144, where
-// short splits stay at fp32 rounding). So the 96
+// The tensor cores do not add into their accumulator in IEEE fp32 round to
+// nearest (they align the addends and drop the bits shifted out), so one
+// accumulator chained over a split's tens of thousands of rows is not an
+// fp32 sum and its error grows with the split. So the 96
 // products of a tile's 32-row k-step (six MMAs) are summed into a fresh
 // accumulator d, which is added to the tile's fp32 sum here, as a plain
 // fp32 loop over the k-steps would. The adds are asm volatile
