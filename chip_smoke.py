@@ -9,13 +9,13 @@ Phases, each fatal when its check fails:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. build the hand-written CUDA kernels from ops/csrc (nvcc, sm_90a); this
-   also fails when packed_tdot's ptxas report shows spilled registers or
-   is missing;
+   also fails when a kernel's ptxas report shows spilled registers or is
+   missing;
 3. hold each kernel against its plain PyTorch version on the card at ragged
    shapes (SHAPES_RAGGED: n no multiple of 16, p no multiple of anything,
    one shape with a single split of packed_tdot; r ∈ WIDTHS_RAGGED, every
    column tiling and its edge; 3% missing codes, one all-missing SNP), and
-   packed_tdot against itself bit for bit;
+   packed_dot and packed_tdot each against itself bit for bit;
 4. at the main path's shapes (50 000 individuals × 262 144 SNPs, r ∈
    WIDTHS_MAIN): check each kernel against its plain version again and time it
    (CUDA events, median of 10) beside its bound, its plain version and one
@@ -53,9 +53,9 @@ P_KERNELS = 262144   # SNP rows of the kernel timing phase
 # operand widths the main path launches: 2 (shifted Lanczos on [X y]), 8
 # (CG blocks padded to 8), 16 (the s0 estimate), 32 (the logdet probe
 # Lanczos), 64 and ~137 (probe Lanczos and stat rows); between them they
-# take every tiling of packed_dot (BN = 8, 32 and 64, packed_dot.cu)
-# and of packed_tdot (N = 8, 16, 32, 64 and 144, packed_tdot.cu) with the
-# split count of packed_tdot that goes with each
+# take every column tiling of both kernels (N = 8, 16, 32, 64 and 144,
+# mma_tile_width in packed_common.cuh) with the split count of packed_tdot
+# that goes with each
 WIDTHS_MAIN = (2, 8, 16, 32, 64, 137)
 # and the edges of every column tiling: one column past a tile (9, 17, 33,
 # 65, 145: 145 takes two 144-wide tiles of packed_tdot) and a full one (144)
@@ -65,17 +65,15 @@ WIDTHS_RAGGED = (1, 2, 8, 9, 16, 17, 32, 33, 64, 65, 137, 144, 145)
 # gives packed_tdot a single split (no reduce launch)
 SHAPES_RAGGED = ((1001, 20011), (50000, 3001), (50000, 201))
 
-# NVIDIA H100 SXM data sheet: HBM3 bandwidth, fp32 outside the tensor cores
-# (packed_dot runs IEEE fp32 FMAs on the CUDA cores) and dense bf16 on the
-# tensor cores (packed_tdot runs its products there)
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth and dense bf16 on the tensor
+# cores (both kernels run their products there)
 HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS_PER_S = 67e12
 BF16_TC_FLOPS_PER_S = 989e12
 # kernel vs plain version, as max |kernel − plain| / max |plain|: both are
 # fp32 sums of up to 262 144 terms taken in different orders; the rounding
 # of such a sum is ~√K·2⁻²⁴ of its scale (≈3e-5 at K = 262 144, worst
 # case), and packed_tdot's bf16x3 products add about 2⁻¹⁷ of each term
-# (2.8e-6 of scale when emulated on the CPU, tests/test_torch_packed.py),
+# (tests/test_torch_packed.py::test_bf16_split_numerics emulates both),
 # so 1e-4 passes every correct kernel and fails any wrong term
 TOL = 1e-4
 KERNELS = {
@@ -163,15 +161,14 @@ def bound(kind: str, n: int, p: int, r: int,
     """Least time (ms) the card could take for the work, whether bytes or
     operations bound it, and the unit that sets it: each input read once
     and each output written once over the HBM rate, against the function's
-    own 2·p·n·r FLOPs over the peak of the unit the kernel runs on.
+    own 2·p·n·r FLOPs as one dense bf16 product at the tensor cores' peak.
 
-    packed_dot runs on the fp32 CUDA cores. packed_tdot runs on the bf16
-    tensor cores, and its bound counts one dense bf16 product at their
-    peak: that is the least any tensor-core route could do, though fp32
-    accuracy needs T split in two and the kernel executes three products
-    (W_hi·T_hi, W_hi·T_lo and W_lo·T_hi, whose W_lo is zero except at
-    missing codes); :func:`executed_flops` counts those. kernel_matvec is
-    the two launches in turn, so its bound is the sum of theirs."""
+    That is the least any tensor-core route could do, though fp32 accuracy
+    needs the skinny operand split into bf16 pieces: packed_tdot executes
+    three products (W_hi·T_0, W_hi·T_1 and W_lo·T_0, whose W_lo is zero
+    except at missing codes) and packed_dot four (A in three pieces);
+    :func:`executed_flops` counts those. kernel_matvec is the two launches
+    in turn, so its bound is the sum of theirs."""
     if kind == "kernel_matvec":
         parts = [bound(k, n, p, r, nw) for k in ("packed_dot", "packed_tdot")]
         return (sum(b[0] for b in parts),
@@ -179,25 +176,20 @@ def bound(kind: str, n: int, p: int, r: int,
                 " + ".join(b[2] for b in parts))
     stack, means = p * nw * 4, p * 4
     nbytes = stack + means + (n + p) * r * 4   # A→D or T→out: (n+p)·r f32
-    flops = 2 * p * n * r
-    if kind == "packed_dot":
-        peak, unit = FP32_FLOPS_PER_S, "fp32 CUDA cores"
-    else:
-        peak, unit = BF16_TC_FLOPS_PER_S, "bf16 tensor cores"
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
+    t_ops = 2 * p * n * r / BF16_TC_FLOPS_PER_S * 1e3
     if t_ops >= t_bytes:
-        return t_ops, "operations", unit
+        return t_ops, "operations", "bf16 tensor cores"
     return t_bytes, "bytes", "HBM"
 
 
 def executed_flops(kind: str, n: int, p: int, r: int) -> int:
     """FLOPs the kernel executes, beside the function's 2·p·n·r of the
-    bound: packed_tdot runs three dense bf16 products."""
+    bound: packed_dot runs four dense bf16 products, packed_tdot three."""
     if kind == "kernel_matvec":
         return sum(executed_flops(k, n, p, r)
                    for k in ("packed_dot", "packed_tdot"))
-    return (3 if kind == "packed_tdot" else 1) * 2 * p * n * r
+    return (4 if kind == "packed_dot" else 3) * 2 * p * n * r
 
 
 # ---------------------------------------------------------------------------
@@ -238,7 +230,7 @@ def build_phase(build) -> None:
             print(f"  {ln}")
         spills = [int(b) for b in re.findall(r"(\d+) bytes spill",
                                              rep["ptxas"])]
-        check(name != "packed_tdot" or (spills and not any(spills)),
+        check(spills and not any(spills),
               f"{name}: ptxas reports spilled registers, or no report")
     print(f"build wall {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -256,10 +248,13 @@ def ragged_phase(torch, packed, dev, seed: int) -> dict:
             A = torch.randn((n, r), generator=gen, device=dev)
             T = torch.randn((p, r), generator=gen, device=dev)
             D = packed.packed_dot(stack, A, means, n)
-            check(not D[0].any().item(), "all-missing SNP row must be 0")
+            D_again = packed.packed_dot(stack, A, means, n)
             out = packed.packed_tdot(stack, T, means, n)
             again = packed.packed_tdot(stack, T, means, n)
             torch.cuda.synchronize()
+            check(not D[0].any().item(), "all-missing SNP row must be 0")
+            check(torch.equal(D, D_again),
+                  f"packed_dot not bitwise repeatable at n={n} r={r}")
             check(torch.equal(out, again),
                   f"packed_tdot not bitwise repeatable at n={n} r={r}")
             cases = (
@@ -284,8 +279,8 @@ def timing_phase(torch, packed, dev, n: int, p: int, seed: int) -> dict:
     phase(f"4. kernels at the main path's shapes: n={n}, p={p} "
           "(CUDA events: kernels and torch.matmul median of 10, plain "
           "versions median of 3; bound from the H100 SXM data sheet: "
-          "3.35 TB/s HBM, 2·p·n·r FLOPs at 67 TFLOP/s fp32 for packed_dot "
-          "and at 989 TFLOP/s bf16 tensor cores for packed_tdot)")
+          "3.35 TB/s HBM against the function's 2·p·n·r FLOPs at 989 "
+          "TFLOP/s on the bf16 tensor cores, for both kernels)")
     stack, means = random_stack(torch, packed, n, p, seed, dev)
     nw = stack.shape[1]
     gen = torch.Generator(device=dev)

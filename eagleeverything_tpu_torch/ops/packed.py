@@ -18,15 +18,23 @@ plain PyTorch version (unpack + ``torch.matmul``) for a tensor on the CPU
 and launches its kernel for a CUDA tensor; there is no fallback between
 the two. ``LAUNCHES`` counts kernel launches per wrapper.
 
-Numerics: ``packed_dot`` is IEEE fp32 FMAs on the CUDA cores.
-``packed_tdot`` runs on the bf16 tensor cores with fp32 accumulation and
-splits each operand into bf16 halves (W_hi + W_lo, where W_lo is nonzero
-only at missing codes; T_hi + T_lo), summing W_hi·T_hi + W_hi·T_lo +
-W_lo·T_hi: each product keeps about 2⁻¹⁷ of its fp32 value, well inside
-the 1e-4-of-scale tolerance the kernels are held to. Its wrapper allocates
-the scratch: two bf16 planes of T (rows padded to the 32-row k-step,
-columns to whole column tiles) and, for a split-K, ``nsplit·n·r`` f32
-partials that a second launch adds in a fixed order.
+Numerics: both kernels run on the bf16 tensor cores with fp32
+accumulation and split each operand into bf16 pieces: W = W_hi + W_lo
+(W_lo is nonzero only at missing codes) and the skinny operand X into
+X_0 + X_1 (+ X_2), each piece the bf16 of what the earlier ones leave.
+``packed_tdot`` sums W_hi·T_0 + W_hi·T_1 + W_lo·T_0 (bf16x3; T kept to 16
+bits, about 2⁻¹⁷ of each term). ``packed_dot`` keeps A to 24 bits, as
+fp32 does, with a third piece and a fourth product W_hi·A_2: its rounding
+of A is one vector δA whose error W·δA ``kernel_matvec`` would amplify
+along the top eigenvectors of K. Both stay well inside the 1e-4-of-scale
+tolerance the kernels are held to. Each 32-deep k-step is summed from
+zero and added to the running sum with an IEEE fp32 add, since the tensor
+cores' own accumulation is not one. No TF32. Each wrapper allocates its
+scratch: the bf16 planes of X (rows padded to the 32-deep k-step, columns
+to whole column tiles) and, for ``packed_tdot``'s split-K, ``nsplit·n·r``
+f32 partials that a second launch adds in a fixed order. ``packed_dot``
+needs no split: one thread sums each output element over all n genotypes.
+Both are bitwise repeatable.
 """
 
 from __future__ import annotations
@@ -189,7 +197,12 @@ def _raise_on(rc: int, name: str, lib) -> None:
 def _dot_lib():
     from eagleeverything_tpu_torch.ops import build
     lib = build.load("packed_dot")
-    lib.ee_packed_dot.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
+    for fn, nargs in (("ee_packed_dot_split_pieces", 0),
+                      ("ee_packed_dot_split_rows", 1),
+                      ("ee_packed_dot_split_cols", 1)):
+        getattr(lib, fn).argtypes = [ctypes.c_int] * nargs
+        getattr(lib, fn).restype = ctypes.c_int
+    lib.ee_packed_dot.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
         + [ctypes.c_void_p]
     lib.ee_packed_dot.restype = ctypes.c_int
     return lib
@@ -203,7 +216,7 @@ def _tdot_lib():
                       ("ee_packed_tdot_split_cols", 1)):
         getattr(lib, fn).argtypes = [ctypes.c_int] * nargs
         getattr(lib, fn).restype = ctypes.c_int
-    lib.ee_packed_tdot.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 \
+    lib.ee_packed_tdot.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
         + [ctypes.c_void_p]
     lib.ee_packed_tdot.restype = ctypes.c_int
     return lib
@@ -218,11 +231,16 @@ def packed_dot(Wp: torch.Tensor, A: torch.Tensor, means: torch.Tensor,
     lib = _dot_lib()
     p, nw = Wp.shape
     r = A.shape[1]
-    D = torch.empty((p, r), dtype=torch.float32, device=A.device)
     # launch on the operands' card, whichever card is current
     with torch.cuda.device(Wp.device):
+        D = torch.empty((p, r), dtype=torch.float32, device=A.device)
+        # the bf16 pieces of A, written by the kernel's own pre-pass
+        split = torch.empty((lib.ee_packed_dot_split_pieces(),
+                             lib.ee_packed_dot_split_rows(n),
+                             lib.ee_packed_dot_split_cols(r)),
+                            dtype=torch.bfloat16, device=A.device)
         rc = lib.ee_packed_dot(Wp.data_ptr(), A.data_ptr(), means.data_ptr(),
-                               D.data_ptr(), p, nw, n, r,
+                               split.data_ptr(), D.data_ptr(), p, nw, n, r,
                                torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "packed_dot", lib)
     LAUNCHES["packed_dot"] += 1
@@ -250,8 +268,8 @@ def packed_tdot(Wp: torch.Tensor, T: torch.Tensor, means: torch.Tensor,
                              lib.ee_packed_tdot_split_cols(r)),
                             dtype=torch.bfloat16, device=T.device)
         rc = lib.ee_packed_tdot(Wp.data_ptr(), T.data_ptr(), means.data_ptr(),
-                                split[0].data_ptr(), split[1].data_ptr(),
-                                part.data_ptr(), out.data_ptr(), p, nw, n, r,
+                                split.data_ptr(), part.data_ptr(),
+                                out.data_ptr(), p, nw, n, r,
                                 nsplit, torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "packed_tdot", lib)
     LAUNCHES["packed_tdot"] += 1

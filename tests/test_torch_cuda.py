@@ -41,17 +41,18 @@ def _scan(n: int, device) -> tuple:
     return sc, sc._packed_stack(), sc._pmeans, rng
 
 
-# every column tiling of both kernels and its ragged edge: packed_dot's
-# BN = 8/32/64 and packed_tdot's N = 8/16/32/64/144 (r > 144: two tiles)
+# every column tiling of both kernels and its ragged edge: N = 8, 16, 32,
+# 64 and 144, the same for both (mma_tile_width; r > 144: two tiles)
 WIDTHS = [1, 2, 8, 9, 16, 17, 32, 33, 64, 65, 137, 144, 145]
 
 
 @pytest.mark.parametrize("n", [1001, 1015])
 @pytest.mark.parametrize("r", WIDTHS)
 def test_kernels_match_plain(cuda, n, r):
-    """fp32 sums in another order than the plain torch.matmul, and
-    packed_tdot's bf16x3 products (about 2⁻¹⁷ of each term): both far
-    below 1e-4 of the result's scale."""
+    """fp32 sums in another order than the plain torch.matmul, and the
+    kernels' split bf16 products (at most about 2⁻¹⁷ of each term): both far
+    below 1e-4 of the result's scale. The all-missing SNP's row of D is
+    exactly 0."""
     _, Wp, means, rng = _scan(n, cuda)
     A = torch.from_numpy(rng.standard_normal((n, r)).astype(np.float32)
                          ).to(cuda)
@@ -98,13 +99,17 @@ def test_launch_counts_and_repeatability(cuda):
 
 
 @pytest.mark.parametrize("r", [2, 8, 16, 32, 64, 137, 145])
-def test_packed_tdot_bitwise_repeatable(cuda, r):
-    """No float atomics: the splits are added in a fixed order, so two calls
-    on the same operands give the same bits at every column tiling."""
+@pytest.mark.parametrize("kernel", ["packed_dot", "packed_tdot"])
+def test_bitwise_repeatable(cuda, kernel, r):
+    """No float atomics: packed_dot sums each output element in one thread,
+    packed_tdot adds its splits in a fixed order, so two calls on the same
+    operands give the same bits at every column tiling."""
     _, Wp, means, rng = _scan(1001, cuda)
-    T = torch.from_numpy(rng.standard_normal((P, r)).astype(np.float32)
+    rows = 1001 if kernel == "packed_dot" else P
+    X = torch.from_numpy(rng.standard_normal((rows, r)).astype(np.float32)
                          ).to(cuda)
-    a = packed.packed_tdot(Wp, T, means, 1001)
-    b = packed.packed_tdot(Wp, T, means, 1001)
+    fn = getattr(packed, kernel)
+    a = fn(Wp, X, means, 1001)
+    b = fn(Wp, X, means, 1001)
     torch.cuda.synchronize()
     assert torch.equal(a, b)

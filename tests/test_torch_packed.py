@@ -19,9 +19,11 @@ import jax.numpy as jnp  # noqa: E402
 
 from eagleeverything_tpu.models import engine_jax  # noqa: E402
 from eagleeverything_tpu.ops import pallas_packed as pp  # noqa: E402
+from eagleeverything_tpu_torch.models import engine_torch  # noqa: E402
 from eagleeverything_tpu_torch.models.engine_torch import (  # noqa: E402
     stack_from_jax)
 from eagleeverything_tpu_torch.ops import packed  # noqa: E402
+from eagleeverything_tpu_torch.utils.config import EagleConfig  # noqa: E402
 
 N, P = 1000, 400          # the logical shape of tests/test_pallas_packed.py
 P_PAD = pp.BLK_P
@@ -167,29 +169,34 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
 
 
-def _tdot_bf16x3(Wp, T, means, n: int, chunk: int = 32768) -> torch.Tensor:
-    """packed_tdot's tensor-core numerics with torch ops: W and T split
-    into bf16 halves, the three products W_hi·T_hi + W_hi·T_lo + W_lo·T_hi
-    (each exact in fp32) accumulated in fp32."""
-    out = torch.zeros((n, T.shape[1]), dtype=torch.float32)
-    for i0 in range(0, Wp.shape[0], chunk):
-        W = packed.recode(Wp[i0 : i0 + chunk], means[i0 : i0 + chunk], n)
-        w_hi = _bf16(W)
-        w_lo = _bf16(W - w_hi)
-        codes = packed.unpack_codes(Wp[i0 : i0 + chunk], n)
-        assert not w_lo[codes != 3].any()       # W_lo lives at missing codes
-        t_hi = _bf16(T[i0 : i0 + chunk])
-        t_lo = _bf16(T[i0 : i0 + chunk] - t_hi)
-        out += w_hi.T @ t_hi + w_hi.T @ t_lo + w_lo.T @ t_hi
-    return out
+def _split_product(W: torch.Tensor, X: torch.Tensor,
+                   pieces: int) -> torch.Tensor:
+    """W·X with the kernels' tensor-core numerics, in torch ops: W split
+    into bf16 halves, X into ``pieces`` bf16 pieces (each the bf16 of what
+    the earlier ones leave), the products W_hi·X_0 + ... + W_hi·X_{P-1} +
+    W_lo·X_0 (each exact in fp32) accumulated in fp32. packed_tdot splits
+    its T in 2 (bf16x3), packed_dot its A in 3."""
+    w_hi = _bf16(W)
+    w_lo = _bf16(W - w_hi)
+    xs = []
+    for _ in range(pieces):
+        xs.append(_bf16(X))
+        X = X - xs[-1]
+    return sum(w_hi @ x for x in xs) + w_lo @ xs[0]
+
+
+PIECES = {"packed_dot": 3, "packed_tdot": 2}
 
 
 @pytest.mark.parametrize("r", [8, 137])
-def test_packed_tdot_bf16x3_numerics(r):
-    """The split products hold packed_tdot to 1e-4 of scale at the main
-    path's contraction length, p = 262 144 (3% missing, one all-missing
-    SNP); bf16 W_hi·T_hi alone does not."""
-    n, p = 37, 262144
+@pytest.mark.parametrize("kernel", ["packed_dot", "packed_tdot"])
+def test_bf16_split_numerics(kernel, r):
+    """The split products hold each kernel to 1e-4 of scale at the main
+    path's contraction length — packed_dot's n = 50 000 genotypes,
+    packed_tdot's p = 262 144 SNPs — with 3% missing codes and one
+    all-missing SNP, whose row of packed_dot's D stays exactly 0; bf16
+    W_hi·X_0 alone does not hold that tolerance."""
+    n, p = (50000, 37) if kernel == "packed_dot" else (37, 262144)
     rng = np.random.default_rng(r)
     codes = _codes(rng, p, n)
     codes[11] = 3
@@ -201,13 +208,52 @@ def test_packed_tdot_bf16x3_numerics(r):
     Wp = torch.from_numpy(np.ascontiguousarray(Wb).view(np.int32))
     means = packed.row_means(Wp, n)
     assert means[11].item() == 1.0
-    T = torch.from_numpy(rng.standard_normal((p, r)).astype(np.float32))
-    ref = packed.packed_tdot_plain(Wp, T, means, n)
+    W = packed.recode(Wp, means, n)
+    w_lo = _bf16(W - _bf16(W))
+    assert not w_lo[torch.from_numpy(codes != 3)].any()  # only at missing
+    rows = n if kernel == "packed_dot" else p
+    X = torch.from_numpy(rng.standard_normal((rows, r)).astype(np.float32))
+    if kernel == "packed_dot":
+        ref = packed.packed_dot_plain(Wp, X, means, n)
+    else:
+        ref = packed.packed_tdot_plain(Wp, X, means, n)
+        W = W.T
     scale = ref.abs().max().item()
-    got = _tdot_bf16x3(Wp, T, means, n)
+    got = _split_product(W, X, PIECES[kernel])
     assert (got - ref).abs().max().item() <= 1e-4 * scale
-    hi_only = _bf16(packed.recode(Wp, means, n)).T @ _bf16(T)
+    if kernel == "packed_dot":
+        assert not got[11].any()
+    hi_only = _bf16(W) @ _bf16(X)
     assert (hi_only - ref).abs().max().item() > 1e-4 * scale
+
+
+def test_kernel_matvec_split_numerics():
+    """Why packed_dot splits A in three pieces: kernel_matvec with both
+    kernels' numerics emulated meets the tolerance that the card test
+    test_stack_and_scan_on_card_match_cpu holds the card to (rtol 1e-4,
+    atol 1e-2, at its 1001 x 3001 inputs), and with A in two pieces it
+    does not. A's rounding is one vector δA, so packed_dot's error W·δA
+    comes out of packed_tdot as K·δA, amplified along K's top
+    eigenvectors."""
+    n, p = 1001, 3001
+    rng = np.random.default_rng(n)
+    G = rng.integers(0, 3, size=(n, p)).astype(np.int8)
+    G[rng.random((n, p)) < 0.03] = -9
+    G[:, 5] = -9
+    sc = engine_torch.TiledScan(engine_torch.DenseTileSource(G),
+                                EagleConfig(snp_tile=1024), "cpu")
+    V = rng.standard_normal((n, 16))
+    ref = sc.kernel_matvec(V)
+    W = packed.recode(sc._packed_stack(), sc._pmeans, n)
+    X = torch.from_numpy(V).float()
+
+    def excess(a_pieces: int) -> float:
+        D = _split_product(W, X, a_pieces)
+        got = _split_product(W.T, D, PIECES["packed_tdot"]).numpy()
+        return float((np.abs(got - ref) - (1e-2 + 1e-4 * np.abs(ref))).max())
+
+    assert excess(PIECES["packed_dot"]) <= 0.0
+    assert excess(2) > 0.0
 
 
 def test_wrappers_reject_bad_operands(stacks):
