@@ -23,11 +23,24 @@ Phases, each fatal when its check fails:
    calls);
 5. a small parity check: ``am(engine="matfree")`` at n = 2000, p = 20 000
    on the card and on the CPU must select the same SNPs;
-6. the main path as a user runs it: ``am(engine="auto")`` on a cohort of
-   50 000 × p generated on the card from ``--seed`` (50 000 >
-   matfree_min_n, so auto takes the matrix-free engine), with the kernels' launch counts read
-   around exactly that call; every selected SNP must be a planted QTL;
-7. a summary line per kernel and the kernels' JSON line, then the last
+6. the matrix-free path as a user runs it: ``am(engine="auto")`` on a
+   cohort of 50 000 × p generated on the card from ``--seed`` (50 000 >
+   matfree_min_n, so auto takes the matrix-free engine), with the kernels'
+   launch counts read around exactly that call; every selected SNP must be
+   a planted QTL;
+7. exact-engine parity: ``am(engine="jax")`` at n = 2000, p = 20 000 on the
+   card and on the CPU must select the same SNPs, extBIC within rtol 1e-6;
+8. the exact engine's path as a user runs it, on BASELINE config 2 (the
+   mouse panel, 2000 × 100 000, uncut): ``am(engine="auto")`` (2000 ≤
+   matfree_min_n, so auto takes the exact eigenbasis engine) with its
+   device ops counted and timed between CUDA events around each call; the
+   packed-stack kernels must not launch, every selected SNP must be
+   planted;
+9. the exact engine's large-n branch: ``am(engine="auto")`` at 16 384 ×
+   65 536 — the eigendecomposition runs on the card (n > host_eigh_max_n)
+   and U never reaches the host, T is recomputed every sweep (p·n·4 bytes
+   exceed half of device_cache_gb); every selected SNP must be planted;
+10. a summary line per kernel and the kernels' JSON line, then the last
    line ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside a checkout, it exits non-zero with no result line.
@@ -66,9 +79,11 @@ WIDTHS_RAGGED = (1, 2, 8, 9, 16, 17, 32, 33, 64, 65, 137, 144, 145)
 SHAPES_RAGGED = ((1001, 20011), (50000, 3001), (50000, 201))
 
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth and dense bf16 on the tensor
-# cores (both kernels run their products there)
+# cores (both kernels run their products there); fp32 outside the tensor
+# cores, where the exact engine's IEEE fp32 products run
 HBM_BYTES_PER_S = 3.35e12
 BF16_TC_FLOPS_PER_S = 989e12
+FP32_FLOPS_PER_S = 67e12
 # kernel vs plain version, as max |kernel − plain| / max |plain|: both are
 # fp32 sums of up to 262 144 terms taken in different orders; the rounding
 # of such a sum is ~√K·2⁻²⁴ of its scale (≈3e-5 at K = 262 144, worst
@@ -190,6 +205,123 @@ def executed_flops(kind: str, n: int, p: int, r: int) -> int:
         return sum(executed_flops(k, n, p, r)
                    for k in ("packed_dot", "packed_tdot"))
     return (4 if kind == "packed_dot" else 3) * 2 * p * n * r
+
+
+class OpTimer:
+    """Counts and times the calls of some functions for the length of a
+    ``with`` block: each named attribute of each object is replaced by a
+    wrapper that records a CUDA event before and after the call (no
+    synchronisation, so the run is not slowed), and is restored on exit.
+    ``flops(args) -> (FLOPs, bytes)`` of a call come from its operands'
+    shapes. ``last`` keeps each op's last return value."""
+
+    def __init__(self, torch, targets: dict):
+        self.torch = torch
+        self.targets = targets          # name → (object, attribute, flops)
+        self.calls = {name: [] for name in targets}
+        self.last = {}
+        self._saved = []
+
+    def __enter__(self):
+        for name, (obj, attr, cost) in self.targets.items():
+            fn = getattr(obj, attr)
+            self._saved.append((obj, attr, fn))
+            setattr(obj, attr, self._wrap(name, fn, cost))
+        return self
+
+    def _wrap(self, name, fn, cost):
+        torch = self.torch
+
+        def timed_call(*args, **kwargs):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(*args, **kwargs)
+            b.record()
+            self.calls[name].append((a, b, cost(args)))
+            self.last[name] = out
+            return out
+        return timed_call
+
+    def __exit__(self, *exc):
+        for obj, attr, fn in reversed(self._saved):
+            setattr(obj, attr, fn)
+        return False
+
+    def report(self) -> dict:
+        """{name: {calls, ms (sum), ms_per_call, flops_per_call,
+        bytes_per_call, tflops, pct_fp32_peak, pct_hbm}}."""
+        self.torch.cuda.synchronize()
+        out = {}
+        for name, calls in self.calls.items():
+            if not calls:
+                out[name] = {"calls": 0}
+                continue
+            ms = sum(a.elapsed_time(b) for a, b, _ in calls)
+            flops = sum(c[0] for _, _, c in calls)
+            nbytes = sum(c[1] for _, _, c in calls)
+            out[name] = {
+                "calls": len(calls), "ms": ms, "ms_per_call": ms / len(calls),
+                "flops_per_call": flops / len(calls),
+                "bytes_per_call": nbytes / len(calls),
+                "tflops": flops / ms / 1e9,
+                "pct_fp32_peak": 100 * flops / (ms * 1e-3) / FP32_FLOPS_PER_S,
+                "pct_hbm": 100 * nbytes / (ms * 1e-3) / HBM_BYTES_PER_S}
+        return out
+
+
+def exact_op_targets(torch, kernels) -> dict:
+    """The exact engine's device ops and their work, from the operands'
+    shapes: FLOPs of the products (2 a multiply-add) and elementwise
+    passes, bytes of each input read once and each output written once.
+    The eigendecomposition counts 9n³, the textbook count for eigenvalues
+    and eigenvectors of a symmetric matrix (Golub & Van Loan)."""
+    def unpack(a):
+        tile, n = a[0], a[1]
+        return 0, tile.numel() * tile.element_size() + tile.shape[0] * n * 4
+
+    def mmt(a):
+        (n, _), (b, _) = a[0].shape, a[1].shape
+        return 2 * b * n * n, 4 * (2 * n * n + b * n)
+
+    def eig_t(a):
+        (b, n), (_, m) = a[0].shape, a[1].shape
+        return 2 * b * n * m, 4 * (b * n + n * m + b * m)
+
+    def score(a):
+        (b, n), q = a[0].shape, a[2].shape[1]
+        return 2 * b * n * (1 + q) + 3 * b * n, 4 * (b * n + n * q + b)
+
+    def eigh(a):
+        n = a[0].shape[0]
+        return 9 * n ** 3, 4 * (2 * n * n + n)
+
+    return {"unpack_recode_tile": (kernels, "unpack_recode_tile", unpack),
+            "mmt_accumulate": (kernels, "mmt_accumulate", mmt),
+            "eig_T_tile": (kernels, "eig_T_tile", eig_t),
+            "score_from_T": (kernels, "score_from_T", score),
+            "torch.linalg.eigh": (torch.linalg, "eigh", eigh)}
+
+
+def print_ops(ops: dict) -> None:
+    for name, m in ops.items():
+        if not m["calls"]:
+            print(f"  {name:20s} not called")
+            continue
+        print(f"  {name:20s} {m['calls']:4d} calls  {m['ms_per_call']:10.3f} "
+              f"ms a call  {m['flops_per_call'] / 1e9:10.2f} GFLOP a call  "
+              f"{m['tflops']:7.2f} TFLOP/s ({m['pct_fp32_peak']:5.1f}% of "
+              f"67 TFLOP/s fp32)  {m['bytes_per_call'] / 1e9:7.3f} GB a "
+              f"call ({m['pct_hbm']:5.1f}% of 3.35 TB/s)", flush=True)
+
+
+def scan_phases(events: list[dict]) -> dict:
+    """{phase: [wall s, ...]} from a scan log."""
+    out: dict = {}
+    for e in events:
+        if e["event"] == "phase":
+            out.setdefault(e["phase"], []).append(e["wallclock_s"])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -381,8 +513,8 @@ def parity_phase(torch, ep, tmp: str, seed: int, dev) -> None:
 def main_path_phase(torch, ep, packed, tmp: str, n: int, p: int, seed: int,
                     dev) -> dict:
     from eagleeverything_tpu_torch.data.simulate import simulate_cohort
-    phase(f"6. main path: am(engine='auto') on a generated cohort of {n} x "
-          f"{p} (seed {seed}, 8 planted QTL)")
+    phase(f"6. matrix-free path: am(engine='auto') on a generated cohort of "
+          f"{n} x {p} (seed {seed}, 8 planted QTL)")
     t0 = time.perf_counter()
     c = simulate_cohort(os.path.join(tmp, "cohort"), n=n, p=p, n_qtl=8,
                         seed=seed, device=dev)
@@ -427,10 +559,147 @@ def main_path_phase(torch, ep, packed, tmp: str, n: int, p: int, seed: int,
             "indices": res.indices}
 
 
+def exact_parity_phase(torch, ep, tmp: str, seed: int, dev) -> float:
+    from eagleeverything_tpu_torch.data.simulate import simulate_cohort
+    n, p = 2000, 20000
+    phase(f"7. exact parity: am(engine='jax') at n={n}, p={p} on cuda and "
+          "cpu")
+    c = simulate_cohort(os.path.join(tmp, "exact_parity"), n=n, p=p,
+                        seed=seed, device=dev)
+    h = ep.GenoHandle(n=n, p=p, source="exact_parity", store_dir=c.store_dir)
+    out = {}
+    for d in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        out[d] = ep.am("y", h, {"y": c.y}, maxit=5, engine="jax", device=d)
+        print(f"{d}: indices {out[d].indices}  extBIC "
+              f"{[round(v, 4) for v in out[d].extbic_path]}  "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    check(out["cuda"].indices == out["cpu"].indices,
+          "cuda and cpu selections differ on the exact engine")
+    check(len(out["cuda"].indices) >= 1, "the exact parity scan selected "
+          "nothing")
+    gap = float(np.max(np.abs(np.subtract(out["cuda"].extbic_path,
+                                          out["cpu"].extbic_path))
+                       / np.abs(out["cpu"].extbic_path)))
+    print(f"largest relative extBIC gap, cuda vs cpu: {gap:.3e} (limit 1e-6)")
+    check(gap <= 1e-6, f"cuda and cpu extBIC paths differ by {gap:.3e} > "
+          "1e-6 relative")
+    return gap
+
+
+def exact_scan_phase(torch, ep, packed, kernels, engine_torch, tmp: str,
+                     title: str, n: int, p: int, maxit: int, seed: int,
+                     dev) -> dict:
+    """``am(engine="auto")`` on a generated n × p cohort (8 planted QTL)
+    that auto routes to the exact engine, with the device ops counted and
+    timed, the packed-stack kernels' launch counts read around exactly that
+    call, and the eigenbasis it used kept for the caller's checks."""
+    from eagleeverything_tpu_torch.data.simulate import simulate_cohort
+    phase(f"{title}: am(engine='auto') on a generated cohort of {n} x {p} "
+          f"(seed {seed}, 8 planted QTL, maxit {maxit})")
+    check(n <= ep.EagleConfig().matfree_min_n,
+          f"n={n} would take the matrix-free engine")
+    t0 = time.perf_counter()
+    c = simulate_cohort(os.path.join(tmp, f"exact_{n}x{p}"), n=n, p=p,
+                        n_qtl=8, seed=seed, device=dev)
+    print(f"cohort written in {time.perf_counter() - t0:.1f} s; planted QTL "
+          f"{c.qtl_idx.tolist()}", flush=True)
+    log = os.path.join(tmp, f"exact_{n}x{p}.jsonl")
+    handle = ep.GenoHandle(n=n, p=p, source=f"exact_{n}x{p}",
+                           store_dir=c.store_dir)
+    targets = exact_op_targets(torch, kernels)
+    targets["eigh_basis"] = (engine_torch, "eigh_basis", lambda a: (0, 0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    packed.reset_launches()
+    t0 = time.perf_counter()
+    with OpTimer(torch, targets) as timer:
+        res = ep.am("y", handle, {"y": c.y}, maxit=maxit, engine="auto",
+                    log_jsonl=log)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(packed.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    ops = timer.report()
+    del ops["eigh_basis"]
+    phases = scan_phases(read_log(log))
+    sweeps = phases.get("sweep", [])
+    tile = ep.EagleConfig().resolve_snp_tile(n, -(-p // 128) * 128)
+    n_tiles = -(-p // tile)
+    print(f"  phase mmt {phases['mmt'][0]:.3f} s ({2 * p * n * n / 1e12:.2f} "
+          f"TFLOP), eigh {phases['eigh'][0]:.3f} s, sweeps "
+          + " / ".join(f"{w:.3f}" for w in sweeps) + " s")
+    later = sweeps[1:] or sweeps
+    snps_s = {"first_sweep": p / sweeps[0],
+              "later_sweeps_median": p / float(np.median(later))}
+    print(f"  SNPs scored per second: first sweep {snps_s['first_sweep']:.0f}"
+          f", later sweeps (median) {snps_s['later_sweeps_median']:.0f}")
+    print(f"  {n_tiles} tiles of {tile} SNPs; device ops (CUDA events around "
+          "each call):")
+    print_ops(ops)
+    print(f"selected {res.indices} (planted {c.qtl_idx.tolist()})")
+    print(f"extBIC path {res.extbic_path}")
+    print(f"am() wall {wall:.1f} s; packed-stack kernel launches {launches}; "
+          f"peak device memory {peak / 1e9:.2f} GB", flush=True)
+    check(not any(launches.values()),
+          f"the exact engine launched packed-stack kernels: {launches}")
+    check(len(res.indices) >= 1, f"the {n} x {p} scan selected nothing")
+    check(set(res.indices) <= set(int(q) for q in c.qtl_idx),
+          f"selected SNPs {res.indices} are not all planted QTL")
+    check(all(math.isfinite(v) for v in res.extbic_path),
+          "non-finite extBIC on the exact engine")
+    check(ops["mmt_accumulate"]["calls"] == n_tiles,
+          "mmt_accumulate was not called once a tile")
+    return {"wall_s": wall, "peak_bytes": peak, "phases": phases,
+            "snps_per_s": snps_s, "ops": ops, "n_tiles": n_tiles,
+            "basis": timer.last["eigh_basis"], "indices": res.indices}
+
+
+def config2_phase(torch, ep, packed, kernels, engine_torch, tmp: str,
+                  seed: int, dev) -> dict:
+    """BASELINE config 2 at its full size: the main path of the exact
+    engine. Its W and T tiles fit the device cache, so T is computed once
+    and the host eigendecomposition keeps U on the host."""
+    out = exact_scan_phase(torch, ep, packed, kernels, engine_torch, tmp,
+                           "8. BASELINE config 2 (exact engine)", 2000,
+                           100000, 10, seed, dev)
+    nt = out["n_tiles"]
+    check(out["basis"].host_f64 is not None,
+          "config 2 must decompose K on the host (n ≤ host_eigh_max_n)")
+    check(out["ops"]["eig_T_tile"]["calls"] == nt,
+          "T must be computed once a tile and cached")
+    check(out["ops"]["unpack_recode_tile"]["calls"] == nt,
+          "W must be recoded once a tile and cached")
+    return out
+
+
+def large_n_phase(torch, ep, packed, kernels, engine_torch, tmp: str,
+                  seed: int, dev) -> dict:
+    """The exact engine above host_eigh_max_n: the eigendecomposition runs
+    on the card and U never reaches the host; p·n·4 bytes of T exceed half
+    of device_cache_gb, so every sweep recodes W and recomputes T."""
+    n, p = 16384, 65536
+    cfg = ep.EagleConfig()
+    check(n > cfg.host_eigh_max_n and p * n * 4 > 0.5 * cfg.device_cache_gb
+          * 1e9, "the large-n cell must take the device eigh, uncached T")
+    out = exact_scan_phase(torch, ep, packed, kernels, engine_torch, tmp,
+                           "9. large-n branch (exact engine)", n, p, 5, seed,
+                           dev)
+    nt, sweeps = out["n_tiles"], len(out["phases"]["sweep"])
+    check(out["basis"].host_f64 is None,
+          "U reached the host above host_eigh_max_n")
+    check(out["ops"]["torch.linalg.eigh"]["calls"] == 1,
+          "torch.linalg.eigh must run once on the card")
+    check(out["ops"]["eig_T_tile"]["calls"] == nt * sweeps,
+          "T must be recomputed every sweep")
+    return out
+
+
 def run(args) -> None:
     import torch
 
-    from eagleeverything_tpu_torch.ops import build, packed
+    from eagleeverything_tpu_torch.models import engine_torch
+    from eagleeverything_tpu_torch.ops import build, kernels, packed
     import eagleeverything_tpu_torch as ep
 
     dev = torch.device("cuda")
@@ -448,8 +717,13 @@ def run(args) -> None:
         parity_phase(torch, ep, tmp, args.seed, dev)
         main = main_path_phase(torch, ep, packed, tmp, N, args.p,
                                args.seed, dev)
+        exact_parity_phase(torch, ep, tmp, args.seed, dev)
+        config2_phase(torch, ep, packed, kernels, engine_torch, tmp,
+                      args.seed, dev)
+        large_n_phase(torch, ep, packed, kernels, engine_torch, tmp,
+                      args.seed, dev)
 
-    phase("7. kernels")
+    phase("10. kernels")
     entries = []
     head = 64
     for name, meta in KERNELS.items():

@@ -1,12 +1,15 @@
-"""``am()`` — the multiple-locus forward-selection LMM scan.
+"""``am()`` and ``am_multi()`` — the multiple-locus forward-selection LMM
+scan.
 
-Reference: ``AM()`` (SURVEY.md §3.1, call stack §4.2). This is the entry
-point: input validation and NA bookkeeping on the host, then dispatch to an
-engine — the dense float64 oracle or the matrix-free engine over the
-device-resident packed stack (models/bigscan on engine_torch.TiledScan,
-with the hand-written CUDA kernels of ops/packed) — both of which share
-the same host-f64 REML/extBIC decision path (models/reml_core). The exact
-eigenbasis engine of the JAX package is not in this package yet.
+Reference: ``AM()`` (SURVEY.md §3.1, call stack §4.2). These are the entry
+points: input validation and NA bookkeeping on the host, then dispatch to an
+engine — the dense float64 oracle, the exact eigenbasis engine
+(engine_torch.forward_select: MMt, one eigendecomposition and eigenbasis
+sweeps as torch ops on the device; the default up to ``matfree_min_n``
+individuals), or the matrix-free engine over the device-resident packed
+stack (models/bigscan on engine_torch.TiledScan, with the hand-written CUDA
+kernels of ops/packed; the default above it) — all of which share the same
+host-f64 REML/extBIC decision path (models/reml_core).
 """
 
 from __future__ import annotations
@@ -55,17 +58,22 @@ def am(
       map: optional marker map; selected markers are reported with
         name/chr/pos when given.
       Zmat: optional incidence matrix linking trait records to genotyped
-        individuals (reference: ``ReadZmat``); oracle engine only for now.
+        individuals (reference: ``ReadZmat``); the oracle and the exact
+        engine take it, the matrix-free engine not yet.
       maxit: maximum forward-selection steps (reference default 40).
       fixit: force exactly ``maxit`` selections, ignoring extBIC.
       lam: extBIC sparsity weight λ/gamma.
-      engine: "auto" ("matfree" above ``config.matfree_min_n``
-        individuals, where the n×n kernel no longer fits; the exact engine
-        below it), "matfree" or "oracle". The exact engines ("jax",
-        "sharded") are not in this package yet and raise
-        NotImplementedError, as "auto" does below ``matfree_min_n``.
-      device: where the matrix-free engine runs: CUDA unless the caller
-        passes ``"cpu"`` (raises when CUDA is asked for and absent).
+      engine: "auto" (the exact eigenbasis engine up to
+        ``config.matfree_min_n`` individuals, "matfree" above it, where the
+        n×n kernel no longer fits), "jax" (the exact engine, under the JAX
+        package's name so one call runs on both packages), "matfree" or
+        "oracle". "sharded" (multi-device) is not in this package yet and
+        raises NotImplementedError.
+      ckpt_dir, resume: MMt/eigenbasis cache and per-iteration scan state
+        (exact and matrix-free engines); ``resume`` restarts from the last
+        accepted marker.
+      device: where the exact and matrix-free engines run: CUDA unless the
+        caller passes ``"cpu"`` (raises when CUDA is asked for and absent).
     """
     dev = resolve_device(device)
     prep = prepare_inputs(trait, geno, pheno, fformula, Zmat)
@@ -73,12 +81,11 @@ def am(
     if engine == "auto":
         n_ind = prep.handle.n
         engine = "matfree" if n_ind > config.matfree_min_n else "jax"
-    if engine in ("jax", "sharded"):
+    if engine == "sharded":
         raise NotImplementedError(
-            f"engine {engine!r}: the exact eigenbasis engine is the next "
-            "slice of the PyTorch port; below matfree_min_n="
-            f"{config.matfree_min_n} individuals use engine='matfree' or "
-            "engine='oracle'")
+            "engine 'sharded': multi-device runs are not in the PyTorch "
+            "port yet (ROADMAP.md, multi-process); use engine='jax' on one "
+            "device")
     if engine == "oracle":
         geno_raw = prep.handle.materialize()
         if prep.keep_individuals is not None:
@@ -86,6 +93,14 @@ def am(
         res = oracle.forward_select(
             prep.y, prep.X0, geno_raw, maxit=maxit, fixit=fixit,
             lam_ebic=lam, Z=prep.Z, quiet=quiet,
+        )
+    elif engine == "jax":
+        from eagleeverything_tpu_torch.models import engine_torch
+        res = engine_torch.forward_select(
+            prep.y, prep.X0, prep.handle, maxit=maxit, fixit=fixit,
+            lam_ebic=lam, Z=prep.Z, quiet=quiet, config=config,
+            keep_records=prep.keep_individuals, ckpt_dir=ckpt_dir,
+            resume=resume, log_jsonl=log_jsonl, device=dev,
         )
     elif engine == "matfree":
         # biobank n-scale mode: K never materialized — CG/SLQ REML and the
@@ -131,6 +146,92 @@ def am(
     if not quiet:
         _print_result(res)
     return res
+
+
+def am_multi(
+    traits: list[str],
+    geno: Union[GenoHandle, np.ndarray],
+    pheno: Union[PhenoHandle, dict],
+    fformula: Optional[str] = None,
+    map: Optional[MapHandle] = None,
+    maxit: int = 40,
+    fixit: bool = False,
+    lam: float = 1.0,
+    quiet: bool = True,
+    engine: str = "auto",
+    config: EagleConfig = DEFAULT_CONFIG,
+    device: Optional[Union[str, torch.device]] = None,
+) -> dict[str, AMResult]:
+    """Scan several traits in one pass (BASELINE config 5).
+
+    MMt, its eigendecomposition and the device T tiles are shared; each
+    iteration's sweeps for all still-active traits run as one batched pass.
+    Records with a missing value in ANY trait or covariate are dropped for
+    all traits (union NA rule) so the shared kernel stays valid. Returns
+    {trait_name: AMResult}.
+
+    ``engine``: "auto" or "jax" (the exact eigenbasis engine). The
+    matrix-free multi-trait scan ("matfree", and "auto" above
+    ``config.matfree_min_n`` individuals) is not in this package yet and
+    raises NotImplementedError. ``device`` as in :func:`am`.
+    """
+    from eagleeverything_tpu_torch.api.design import build_design, na_rows
+    from eagleeverything_tpu_torch.models import engine_torch
+
+    dev = resolve_device(device)
+    if isinstance(pheno, PhenoHandle):
+        columns = pheno.columns
+    else:
+        columns = {k: np.asarray(v) for k, v in pheno.items()}
+    missing = [t for t in traits if t not in columns]
+    if missing:
+        raise KeyError(f"traits {missing} not in phenotype columns "
+                       f"{sorted(columns)}")
+    ys_full = np.stack([np.asarray(columns[t], dtype=np.float64)
+                        for t in traits])
+    n_rec = ys_full.shape[1]
+    X_full, _ = build_design(columns, fformula, n_rec)
+    used = [ys_full[i] for i in range(len(traits))] + [
+        X_full[:, j] for j in range(1, X_full.shape[1])]
+    drop = na_rows(*used)
+    keep = np.setdiff1d(np.arange(n_rec), drop)
+
+    handle = geno if isinstance(geno, GenoHandle) else None
+    if handle is None:
+        arr = np.asarray(geno)
+        handle = GenoHandle(n=arr.shape[0], p=arr.shape[1],
+                            source="<array>", geno=arr)
+    if handle.n != n_rec:
+        raise ValueError(f"{n_rec} phenotype records vs {handle.n} "
+                         "individuals")
+
+    if engine == "auto":
+        engine = "matfree" if handle.n > config.matfree_min_n else "jax"
+    if engine == "matfree":
+        raise NotImplementedError(
+            "am_multi on the matrix-free engine is not in the PyTorch port "
+            "yet (ROADMAP.md, am_multi on the matrix-free engine); up to "
+            f"matfree_min_n={config.matfree_min_n} individuals use "
+            "engine='jax'")
+    if engine != "jax":
+        raise ValueError(f"unknown engine {engine!r}")
+    results = engine_torch.forward_select_multi(
+        ys_full[:, keep], X_full[keep], handle,
+        maxit=maxit, fixit=fixit, lam_ebic=lam, quiet=quiet, config=config,
+        keep_records=keep if len(keep) != n_rec else None,
+        trait_names=list(traits), device=dev,
+    )
+    out = {}
+    for res in results:
+        res.dropped_records = drop
+        if map is not None:
+            res.marker_names = [map.marker_names[j] for j in res.indices]
+            res.chr = [str(map.chrom[j]) for j in res.indices]
+            res.pos = [float(map.pos[j]) for j in res.indices]
+        out[res.trait_name] = res
+        if not quiet:
+            _print_result(res)
+    return out
 
 
 def _print_result(res: AMResult) -> None:

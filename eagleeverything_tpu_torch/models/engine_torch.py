@@ -1,14 +1,21 @@
-"""The matrix-free scan backend over the resident 2-bit packed stack.
+"""The scan backend over the resident 2-bit packed stack, and the exact
+eigenbasis engine's forward selection.
 
-Counterpart of the matrix-free subset of the JAX package's
+Counterpart of the single-device part of the JAX package's
 models/engine_jax.py. The whole genotype matrix lives on the device as one
-int32 packed stack (four genotypes a byte, sixteen a word); every pass over
-it is one of the two hand-written kernels of ops/packed:
+int32 packed stack (four genotypes a byte, sixteen a word). Two engines
+read it:
 
-- ``kernel_matvec``: K·V = Wᵀ(W·V), packed_dot then packed_tdot — the unit
-  of every Krylov step (the s0 estimate, the host Lanczos recurrences of
-  models/bigscan, and the device CG);
-- ``sweep_dots`` and ``matfree_stat_rows``: one packed_dot over all SNPs.
+- the matrix-free engine (models/bigscan), whose every pass over the stack
+  is one of the two hand-written kernels of ops/packed: ``kernel_matvec``
+  (K·V = Wᵀ(W·V), packed_dot then packed_tdot — the unit of every Krylov
+  step) and ``sweep_dots`` / ``matfree_stat_rows`` (one packed_dot);
+- the exact eigenbasis engine (:func:`forward_select`,
+  :func:`forward_select_multi`), the default below ``matfree_min_n``: the
+  stack is unpacked a tile at a time into f32 W for the torch ops of
+  ops/kernels — MMt = WᵀW once, one eigendecomposition of K, T = W·U once
+  (cached on the device when it fits), then each sweep scores every SNP
+  from T with skinny products.
 
 The decision path stays on the host in float64; the device works in IEEE
 fp32. The CG solve keeps its X/R/P block on the device and the host reads
@@ -20,6 +27,7 @@ source is packed on the host first.
 
 from __future__ import annotations
 
+import hashlib
 from typing import Iterator, Optional
 
 import numpy as np
@@ -27,8 +35,10 @@ import torch
 
 from eagleeverything_tpu_torch.api.read import GenoHandle
 from eagleeverything_tpu_torch.io import genostore
-from eagleeverything_tpu_torch.ops import packed
-from eagleeverything_tpu_torch.utils.config import EagleConfig
+from eagleeverything_tpu_torch.models import reml_core
+from eagleeverything_tpu_torch.models.oracle import AMResult
+from eagleeverything_tpu_torch.ops import kernels, packed
+from eagleeverything_tpu_torch.utils.config import DEFAULT_CONFIG, EagleConfig
 
 MISSING = -9
 
@@ -104,6 +114,67 @@ def _make_source(handle: GenoHandle, keep: Optional[np.ndarray]) -> TileSource:
     if handle.store_dir is not None:
         return StoreTileSource(handle.store_dir, keep)
     raise ValueError("GenoHandle has neither in-memory genotypes nor a store")
+
+
+def normalized_kernel(
+    K_raw: np.ndarray, Z: Optional[np.ndarray] = None
+) -> np.ndarray:
+    """Mean-diagonal normalization of the raw MMt (+ Zᵀ record-level
+    transform) — the shared prologue of every scan-level entry point."""
+    s0 = float(np.mean(np.diag(K_raw)))
+    K = K_raw / (s0 if s0 > 0 else 1.0)
+    return Z @ K @ Z.T if Z is not None else K
+
+
+class EigenBasis:
+    """The kernel eigenbasis with a host- or device-resident U.
+
+    Up to ``host_eigh_max_n`` U lives on the host in float64 (decision path
+    exactness); above it U is computed AND kept on the device in float32,
+    since all the host decision path needs of it are O(n·q) projections
+    Uᵀ·v, which are device products here."""
+
+    def __init__(self, d: np.ndarray, U_host: Optional[np.ndarray],
+                 U_dev: Optional[torch.Tensor], device: torch.device):
+        self.d = d
+        self._U_host = U_host
+        self._U_dev = U_dev
+        self._device = torch.device(device)
+
+    def project(self, M: np.ndarray) -> np.ndarray:
+        """Uᵀ·M → host f64 (M is (n,) or (n, q) — small output); f32 on
+        the device when U lives there."""
+        if self._U_host is not None:
+            return self._U_host.T @ M
+        Md = torch.as_tensor(np.ascontiguousarray(M), dtype=torch.float32,
+                             device=self._device)
+        return (self._U_dev.T @ Md).cpu().numpy().astype(np.float64)
+
+    def device_basis(self) -> torch.Tensor:
+        if self._U_dev is None:
+            self._U_dev = torch.as_tensor(self._U_host, dtype=torch.float32,
+                                          device=self._device)
+        return self._U_dev
+
+    @property
+    def host_f64(self) -> Optional[np.ndarray]:
+        return self._U_host
+
+
+def eigh_basis(K: np.ndarray, config: EagleConfig,
+               device) -> EigenBasis:
+    """Eigendecomposition of the normalized kernel: host f64 LAPACK up to
+    ``config.host_eigh_max_n``, f32 ``torch.linalg.eigh`` on ``device``
+    above it (U then never reaches the host). Eigenvalues are clipped at
+    0 (K is PSD)."""
+    n = K.shape[0]
+    if n <= config.host_eigh_max_n:
+        d, U = np.linalg.eigh(K)
+        return EigenBasis(np.maximum(d, 0.0), U, None, device)
+    d_dev, U_dev = torch.linalg.eigh(
+        torch.as_tensor(K, dtype=torch.float32, device=device))
+    d = np.maximum(d_dev.cpu().numpy().astype(np.float64), 0.0)
+    return EigenBasis(d, None, U_dev, device)
 
 
 def _impute_column_f64(col_raw: np.ndarray) -> np.ndarray:
@@ -186,10 +257,11 @@ def _cg_step(Wp, means, n: int, X, R, P, rs, thresh, delta, s0: float):
 
 
 class TiledScan:
-    """Single-device matrix-free backend over the resident packed stack
-    (reference: the per-iteration ReadBlock sweep of
-    ``calculate_a_and_vara_rcpp``, SURVEY.md §4.2, with device memory
-    standing in for disk)."""
+    """Single-device backend over the resident packed stack (reference:
+    the per-iteration ReadBlock sweep of ``calculate_a_and_vara_rcpp``,
+    SURVEY.md §4.2, with device memory standing in for disk): the
+    matrix-free engine's kernel passes, and the exact engine's MMt and
+    eigenbasis sweeps over recoded W tiles."""
 
     def __init__(self, src: TileSource, config: EagleConfig,
                  device: torch.device):
@@ -202,6 +274,16 @@ class TiledScan:
         self.tile_snps = config.resolve_snp_tile(src.n,
                                                  -(-src.p // 128) * 128)
         self.nw = packed.words_per_row(src.n)
+        # the exact engine keeps its recoded W tiles, then their eigenbasis
+        # images T, on the device when p·n of them fit half of
+        # device_cache_gb; otherwise every sweep recodes W from the stack
+        # and recomputes T
+        itemsize = 2 if config.compute_dtype == "bfloat16" else 4
+        self.cache_device = (src.p * src.n * itemsize
+                             <= config.device_cache_gb * 1e9 * 0.5)
+        self._wcache: Optional[list[tuple[int, torch.Tensor]]] = None
+        self._tcache: Optional[list[tuple[int, torch.Tensor]]] = None
+        self._U_dev: Optional[torch.Tensor] = None
         if self.device.type == "cuda":
             # the packed stack is the only matrix-free path on the card: a
             # stack larger than the card's free memory is refused, never
@@ -215,9 +297,11 @@ class TiledScan:
                     f"{free / 1e9:.3f} GB free of {total / 1e9:.3f} GB on "
                     f"{self.device}")
             # IEEE fp32 on the card: no TF32 in any matmul or convolution
-            # (the kernels and the decision path's inputs are full fp32)
+            # (the kernels, the exact engine's products and the decision
+            # path's inputs are full fp32)
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
+            torch.set_float32_matmul_precision("highest")
         self._pstack: Optional[torch.Tensor] = None
         self._pmeans: Optional[torch.Tensor] = None
 
@@ -347,3 +431,419 @@ class TiledScan:
         """The f64 recoded W column for SNP j (reference:
         ``extract_geno_rcpp``, SURVEY.md §3.3)."""
         return _impute_column_f64(self.src.column(j))
+
+    # ---- the exact engine: MMt, then sweeps in K's eigenbasis
+
+    def _device_tiles(self) -> Iterator[tuple[int, torch.Tensor]]:
+        """(offset, W tile (b, n) in compute_dtype), recoded on the device
+        from row slices of the resident stack; kept in a device cache when
+        ``cache_device``.
+
+        The reference feeds a TPU from the host: a producer thread streams
+        int8 or packed tiles (or serves them from a separate stack of W),
+        padded to one tile shape for its compiled programs. Here every
+        source is already packed into the resident stack, so each tile is
+        unpacked where it lies, the last one simply shorter; the results
+        are the same."""
+        if self._wcache is not None:
+            yield from self._wcache
+            return
+        cache = [] if self.cache_device else None
+        Wp = self._packed_stack()
+        for t0 in range(0, self.src.p, self.tile_snps):
+            w = kernels.unpack_recode_tile(Wp[t0 : t0 + self.tile_snps],
+                                           self.src.n,
+                                           self.config.compute_dtype)
+            if cache is not None:
+                cache.append((t0, w))
+            yield t0, w
+        if cache is not None:
+            self._wcache = cache
+
+    def compute_K(self) -> np.ndarray:
+        """The raw MMt = WᵀW (n, n), accumulated in f32 on the device over
+        the W tiles, returned as host f64."""
+        n = self.src.n
+        K = torch.zeros((n, n), dtype=torch.float32, device=self.device)
+        for _, w in self._device_tiles():
+            K = kernels.mmt_accumulate(K, w)
+        return self._to_host(K)
+
+    def set_eigenbasis(self, U_eff) -> None:
+        """Place the (possibly Zᵀ-projected) eigenbasis on the device once
+        per scan (a host array or a device tensor); the sweeps then take
+        only O(n·q) inputs per iteration."""
+        self._U_dev = torch.as_tensor(U_eff, dtype=torch.float32,
+                                      device=self.device)
+        self._tcache = None
+
+    def _T_tiles(self) -> Iterator[tuple[int, torch.Tensor]]:
+        """Eigenbasis tiles T = W·U — iteration-invariant, so cached on the
+        device with the W tiles' rule; the W cache is released once T
+        exists (the exact scan needs W no more)."""
+        if self._tcache is not None:
+            yield from self._tcache
+            return
+        cache = [] if self.cache_device else None
+        for j0, w in self._device_tiles():
+            T = kernels.eig_T_tile(w, self._U_dev)
+            if cache is not None:
+                cache.append((j0, T))
+            yield j0, T
+        if cache is not None:
+            self._tcache = cache
+            self._wcache = None
+
+    def sweep_eig(self, s: np.ndarray, Q: np.ndarray, z3: np.ndarray,
+                  sigma2_g: float) -> np.ndarray:
+        """Eigenbasis score sweep (kernels.score_from_T) over every SNP;
+        s, Q, z3 are the host-f64 per-iteration state. One copy to the
+        host a sweep."""
+        s_d, Q_d, z3_d = (self._to_device(a) for a in (s, Q, z3))
+        s2g = torch.tensor(sigma2_g, dtype=torch.float32, device=self.device)
+        out = torch.empty(self.src.p, dtype=torch.float32, device=self.device)
+        for j0, T in self._T_tiles():
+            out[j0 : j0 + T.shape[0]] = kernels.score_from_T(T, s_d, Q_d,
+                                                             z3_d, s2g)
+        return self._to_host(out)
+
+    def sweep_eig_batched(self, s: np.ndarray, Q: np.ndarray,
+                          z3: np.ndarray, sigma2_g: np.ndarray) -> np.ndarray:
+        """Batched eigenbasis sweep: s (R, n), Q (R, n, q), z3 (R, n),
+        σ²_g (R,) → (R, p). The T tiles are shared by the whole batch."""
+        s_d, Q_d, z3_d, s2g = (self._to_device(a)
+                               for a in (s, Q, z3, sigma2_g))
+        out = torch.empty((s_d.shape[0], self.src.p), dtype=torch.float32,
+                          device=self.device)
+        for j0, T in self._T_tiles():
+            out[:, j0 : j0 + T.shape[0]] = kernels.score_from_T_batched(
+                T, s_d, Q_d, z3_d, s2g)
+        return self._to_host(out)
+
+
+# ---------------------------------------------------------------------------
+# The exact eigenbasis engine's forward selection (shared decision path)
+# ---------------------------------------------------------------------------
+
+
+def _eig_iteration_state(
+    d: np.ndarray, y_star: np.ndarray, Xs: np.ndarray, delta: float,
+    qmax: int,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per-iteration host state for the eigenbasis sweep: s = (d+δ)^(-1/2),
+    Q = orth basis of S·X* (zero-padded to qmax columns so the sweep keeps
+    one shape for the whole scan — zero columns leave QQᵀ unchanged), and
+    z3 with P̃y = U·z3:
+      z3 = s ∘ [(I−QQᵀ)(s ∘ y*)].
+    All O(n·q) — the only n² object is the device-resident U."""
+    s = 1.0 / np.sqrt(d + delta)
+    Xr, _ = reml_core.independent_cols(np.asarray(Xs, np.float64))
+    V = Xr * s[:, None]
+    Q, _ = np.linalg.qr(V)
+    z1 = s * y_star
+    z2 = z1 - Q @ (Q.T @ z1)
+    z3 = s * z2
+    if Q.shape[1] < qmax:
+        Q = np.concatenate(
+            [Q, np.zeros((Q.shape[0], qmax - Q.shape[1]))], axis=1)
+    elif Q.shape[1] > qmax:
+        raise ValueError(f"q={Q.shape[1]} exceeds qmax={qmax}")
+    return s, Q, z3
+
+
+def forward_select(
+    y: np.ndarray,
+    X0: np.ndarray,
+    handle: GenoHandle,
+    maxit: int = 40,
+    fixit: bool = False,
+    lam_ebic: float = 1.0,
+    Z: Optional[np.ndarray] = None,
+    quiet: bool = True,
+    config: EagleConfig = DEFAULT_CONFIG,
+    keep_records: Optional[np.ndarray] = None,
+    ckpt_dir: Optional[str] = None,
+    resume: bool = False,
+    log_jsonl: Optional[str] = None,
+    device="cuda",
+) -> AMResult:
+    """The AM forward-selection loop on the exact eigenbasis engine
+    (SURVEY.md §4.2), on one device.
+
+    With ``ckpt_dir``, the n×n MMt is cached keyed by the genotype source
+    (iteration/permutation-invariant, SURVEY.md §6.4), and so is a host
+    eigendecomposition; the tiny scan state is checkpointed at every
+    accepted iteration, and ``resume=True`` restarts a killed scan from the
+    last iteration boundary (§6.3)."""
+    from eagleeverything_tpu_torch.utils import checkpoint as ckpt
+    from eagleeverything_tpu_torch.utils import distributed
+    from eagleeverything_tpu_torch.utils.logging import Phase, ScanLogger
+
+    y = np.asarray(y, dtype=np.float64)
+    X0 = np.asarray(X0, dtype=np.float64)
+    src = _make_source(handle, keep_records)
+    n = y.shape[0]
+    p = src.p
+    logger = ScanLogger(quiet=quiet, jsonl_path=log_jsonl,
+                        is_host0=distributed.is_host0())
+    backend = TiledScan(src, config, device)
+
+    K_raw = None
+    mmt_key = None
+    if ckpt_dir is not None:
+        mmt_key = ckpt.mmt_cache_key(
+            handle.source, src.n, src.p, keep_records,
+            content_token=ckpt.genotype_content_token(handle))
+        K_raw = ckpt.load_mmt(ckpt_dir, mmt_key)
+        if K_raw is not None and K_raw.shape != (src.n, src.n):
+            K_raw = None
+    if K_raw is None:
+        with Phase(logger, "mmt", items=p):
+            K_raw = backend.compute_K()
+        if ckpt_dir is not None:
+            ckpt.save_mmt(ckpt_dir, mmt_key, K_raw)
+    if Z is None and n != src.n:
+        raise ValueError(f"trait has {n} records but {src.n} genotyped "
+                         "individuals")
+    K_eff = normalized_kernel(K_raw, Z)
+
+    selected: list[int] = []
+    extbic_path: list[float] = []
+    loglik_path: list[float] = []
+    outlier_stats: list[np.ndarray] = []
+
+    X = X0
+    if resume and ckpt_dir is not None:
+        state = ckpt.load_scan_state(ckpt_dir)
+        if state is not None:
+            meta = state.get("meta", {})
+            expect = {"trait_n": n, "p": p, "lam_ebic": lam_ebic}
+            mismatch = {k: (meta.get(k), v) for k, v in expect.items()
+                        if meta.get(k) != v}
+            if mismatch:
+                raise ValueError(
+                    f"refusing to resume: checkpoint in {ckpt_dir} was "
+                    f"written for different inputs {mismatch} "
+                    "(saved vs current)")
+            selected = [int(j) for j in state["selected"]]
+            for j in selected:
+                w_col = backend.column_f64(j)
+                x_col = Z @ w_col if Z is not None else w_col
+                X = np.hstack([X, x_col[:, None]])
+            extbic_path = [float(v) for v in state["extbic_path"][:-1]]
+            loglik_path = [float(v) for v in state["loglik_path"][:-1]]
+            logger.event("resume", markers=len(selected))
+
+    # One eigendecomposition of K for the whole scan (FaST-LMM style):
+    # every later REML fit is O(n·q²) in this basis, and the sweep is
+    # O(n·q) a SNP. Cached beside MMt, keyed by the kernel's CONTENT so a
+    # changed MMt cache cannot serve a stale basis.
+    basis = None
+    eig_key = None
+    if ckpt_dir is not None and Z is None:
+        eig_key = (mmt_key + "-"
+                   + hashlib.sha256(np.ascontiguousarray(K_eff).tobytes())
+                   .hexdigest()[:16])
+        cached = ckpt.load_eig(ckpt_dir, eig_key)
+        if cached is not None and cached[0].shape[0] == n:
+            basis = EigenBasis(np.maximum(cached[0], 0.0), cached[1], None,
+                               backend.device)
+    if basis is None:
+        with Phase(logger, "eigh", items=n):
+            basis = eigh_basis(K_eff, config, backend.device)
+        if eig_key is not None and basis.host_f64 is not None:
+            ckpt.save_eig(ckpt_dir, eig_key, basis.d, basis.host_f64)
+    d_eig = basis.d
+    y_star = basis.project(y)
+    Xs = basis.project(X)
+    # the sweep runs in K's eigenbasis on the device (T = W·U tiles); with
+    # Z the basis is Zᵀ·U (T_j = (Z·w_j)ᵀU = w_jᵀ·(ZᵀU)), folded on the
+    # host when U is there, else on the device, so U never reaches the host
+    if Z is None:
+        backend.set_eigenbasis(basis.device_basis())
+    elif basis.host_f64 is not None:
+        backend.set_eigenbasis(Z.T @ basis.host_f64)
+    else:
+        backend.set_eigenbasis(
+            torch.as_tensor(np.ascontiguousarray(Z.T), dtype=torch.float32,
+                            device=backend.device) @ basis.device_basis())
+    qmax = -(-(X0.shape[1] + maxit + 1) // 8) * 8
+
+    fit = reml_core.reml_maximize_diag(d_eig, y_star, Xs)
+    best = reml_core.extbic(fit.loglik, n, p, len(selected), lam_ebic)
+    extbic_path.append(best)
+    loglik_path.append(fit.loglik)
+    if not quiet:
+        print(f"[engine] start: extBIC={best:.4f} delta={fit.delta:.4g} "
+              f"k={len(selected)}")
+
+    for it in range(len(selected), maxit):
+        with Phase(logger, "sweep", items=p):
+            s_vec, Qp, z3 = _eig_iteration_state(
+                d_eig, y_star, Xs, fit.delta, qmax)
+            t = backend.sweep_eig(s_vec, Qp, z3, fit.sigma2_g)
+            t[selected] = 0.0
+            cand = int(np.argmax(t))
+        outlier_stats.append(t)
+        if t[cand] <= 0.0:
+            # exhausted: every remaining SNP is selected or zero-variance
+            break
+
+        w_col = backend.column_f64(cand)
+        x_col = Z @ w_col if Z is not None else w_col
+        X_new = np.hstack([X, x_col[:, None]])
+        Xs_new = np.hstack([Xs, basis.project(x_col)[:, None]])
+        fit_new = reml_core.reml_maximize_diag(d_eig, y_star, Xs_new)
+        ebic_new = reml_core.extbic(fit_new.loglik, n, p, len(selected) + 1,
+                                    lam_ebic)
+        if not quiet:
+            print(f"[engine] it={it} cand={cand} t_max={t[cand]:.4f} "
+                  f"extBIC {best:.4f} -> {ebic_new:.4f}")
+        accepted = ebic_new < best or fixit
+        logger.event(
+            "iteration", it=it, candidate=cand, t_max=float(t[cand]),
+            extbic=float(ebic_new), accepted=accepted,
+            sigma2_g=float(fit_new.sigma2_g),
+            sigma2_e=float(fit_new.sigma2_e),
+        )
+        if not accepted:
+            break
+        selected.append(cand)
+        X, Xs, fit, best = X_new, Xs_new, fit_new, ebic_new
+        extbic_path.append(ebic_new)
+        loglik_path.append(fit_new.loglik)
+        if ckpt_dir is not None:
+            ckpt.save_scan_state(
+                ckpt_dir, selected, extbic_path, loglik_path,
+                fit.delta, fit.sigma2_g, fit.sigma2_e,
+                meta={"trait_n": n, "p": p, "lam_ebic": lam_ebic},
+            )
+
+    logger.close()
+    return AMResult(
+        indices=selected, extbic_path=extbic_path,
+        outlier_stats=outlier_stats, loglik_path=loglik_path,
+        sigma2_g=fit.sigma2_g, sigma2_e=fit.sigma2_e, delta=fit.delta,
+        n=n, p=p, lam_ebic=lam_ebic,
+    )
+
+
+def forward_select_multi(
+    ys: np.ndarray,
+    X0: np.ndarray,
+    handle: GenoHandle,
+    maxit: int = 40,
+    fixit: bool = False,
+    lam_ebic: float = 1.0,
+    quiet: bool = True,
+    config: EagleConfig = DEFAULT_CONFIG,
+    keep_records: Optional[np.ndarray] = None,
+    trait_names: Optional[list[str]] = None,
+    device="cuda",
+) -> list[AMResult]:
+    """Lockstep multi-trait scan on the exact engine (BASELINE config 5).
+
+    All T traits share one MMt, one kernel eigendecomposition and the T
+    tiles; at each iteration the still-active traits' sweeps run as ONE
+    batched pass over the tiles. Each trait keeps its own forward-selection
+    state and extBIC stopping."""
+    from eagleeverything_tpu_torch.utils import distributed
+    from eagleeverything_tpu_torch.utils.logging import Phase, ScanLogger
+
+    ys = np.asarray(ys, dtype=np.float64)
+    T, n = ys.shape
+    X0 = np.asarray(X0, dtype=np.float64)
+    src = _make_source(handle, keep_records)
+    logger = ScanLogger(quiet=quiet, is_host0=distributed.is_host0())
+    p = src.p
+    if n > config.host_eigh_max_n:
+        # the per-trait projections below need U as a HOST f64 matrix —
+        # above host_eigh_max_n that is an n² f64 surprise (20 GB at
+        # n = 50k): a loud error, not an out-of-memory
+        raise ValueError(
+            f"forward_select_multi's eigenbasis path materializes the "
+            f"n×n eigenvector matrix on the host (n={n} > "
+            f"host_eigh_max_n={config.host_eigh_max_n} → "
+            f"{8 * n * n / 1e9:.0f} GB f64). Raise config.host_eigh_max_n "
+            f"explicitly if the host truly has the memory.")
+    backend = TiledScan(src, config, device)
+    with Phase(logger, "mmt", items=p):
+        K_raw = backend.compute_K()
+    if n != src.n:
+        raise ValueError(f"traits have {n} records but {src.n} individuals")
+    K = normalized_kernel(K_raw)
+
+    with Phase(logger, "eigh", items=n):
+        basis = eigh_basis(K, config, backend.device)
+    d_eig, U_eig = basis.d, basis.host_f64       # n ≤ host_eigh_max_n
+    ystars = ys @ U_eig          # (T, n): row t is Uᵀ·y_t
+    Xs0 = U_eig.T @ X0
+    backend.set_eigenbasis(U_eig)
+    qmax = -(-(X0.shape[1] + maxit + 1) // 8) * 8
+
+    class _TraitState:
+        def __init__(self, t):
+            self.t = t
+            self.selected: list[int] = []
+            self.Xs = Xs0
+            self.extbic_path: list[float] = []
+            self.loglik_path: list[float] = []
+            self.outlier: list[np.ndarray] = []
+            self.fit = reml_core.reml_maximize_diag(d_eig, ystars[t], Xs0)
+            self.best = reml_core.extbic(self.fit.loglik, n, p, 0, lam_ebic)
+            self.extbic_path.append(self.best)
+            self.loglik_path.append(self.fit.loglik)
+            self.active = True
+
+    states = [_TraitState(t) for t in range(T)]
+
+    for it in range(maxit):
+        active = [s for s in states if s.active]
+        if not active:
+            break
+        B = len(active)
+        s_all = np.empty((B, n))
+        Q_all = np.empty((B, n, qmax))
+        z3_all = np.empty((B, n))
+        for b, st in enumerate(active):
+            s_all[b], Q_all[b], z3_all[b] = _eig_iteration_state(
+                d_eig, ystars[st.t], st.Xs, st.fit.delta, qmax)
+        with Phase(logger, "sweep", items=p * B):
+            t_all = backend.sweep_eig_batched(
+                s_all, Q_all, z3_all,
+                np.array([st.fit.sigma2_g for st in active]))
+        for b, s in enumerate(active):
+            t_vec = t_all[b]
+            t_vec[s.selected] = 0.0
+            s.outlier.append(t_vec)
+            cand = int(np.argmax(t_vec))
+            if t_vec[cand] <= 0.0:
+                s.active = False  # exhausted for this trait
+                continue
+            w_col = backend.column_f64(cand)
+            Xs_new = np.hstack([s.Xs, (U_eig.T @ w_col)[:, None]])
+            fit_new = reml_core.reml_maximize_diag(d_eig, ystars[s.t], Xs_new)
+            ebic_new = reml_core.extbic(
+                fit_new.loglik, n, p, len(s.selected) + 1, lam_ebic)
+            if ebic_new < s.best or fixit:
+                s.selected.append(cand)
+                s.Xs, s.fit, s.best = Xs_new, fit_new, ebic_new
+                s.extbic_path.append(ebic_new)
+                s.loglik_path.append(fit_new.loglik)
+            else:
+                s.active = False
+            logger.event("iteration", it=it, trait=s.t, candidate=cand,
+                         accepted=s.active or fixit,
+                         extbic=float(ebic_new))
+
+    logger.close()
+    return [
+        AMResult(
+            indices=s.selected, extbic_path=s.extbic_path,
+            outlier_stats=s.outlier, loglik_path=s.loglik_path,
+            sigma2_g=s.fit.sigma2_g, sigma2_e=s.fit.sigma2_e,
+            delta=s.fit.delta, n=n, p=p, lam_ebic=lam_ebic,
+            trait_name=(trait_names[s.t] if trait_names else f"trait{s.t}"),
+        )
+        for s in states
+    ]

@@ -110,10 +110,19 @@ def row_means(Wp: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def recode(Wp: torch.Tensor, means: torch.Tensor, n: int) -> torch.Tensor:
-    """(rows, nw) packed words → (rows, n) f32 recoded W."""
-    vals = _byte_table(Wp.device, float("nan"))[_bytes(Wp)]
-    vals = vals.reshape(Wp.shape[0], -1)[:, :n]
-    return torch.where(torch.isnan(vals), means[:, None] - 1.0, vals)
+    """(rows, nw) packed words → (rows, n) f32 recoded W, unpacked a row
+    chunk at a time so the gather's f32 and int64 blocks stay near 256 MB
+    whatever the number of rows."""
+    rows = Wp.shape[0]
+    out = torch.empty((rows, n), dtype=torch.float32, device=Wp.device)
+    table = _byte_table(Wp.device, float("nan"))
+    step = _row_chunk(n)
+    for i0 in range(0, rows, step):
+        vals = table[_bytes(Wp[i0 : i0 + step])]
+        vals = vals.reshape(vals.shape[0], -1)[:, :n]
+        out[i0 : i0 + step] = torch.where(
+            torch.isnan(vals), means[i0 : i0 + step, None] - 1.0, vals)
+    return out
 
 
 def packed_dot_plain(Wp: torch.Tensor, A: torch.Tensor, means: torch.Tensor,

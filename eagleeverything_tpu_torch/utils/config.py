@@ -32,17 +32,20 @@ class EagleConfig:
         state — is hardwired to host float64 by design, not configurable:
         forward selection is a discrete argmax and tiny numeric drift
         flips markers; SURVEY.md §8 "hardest parts" (1).)
-      snp_tile: number of SNPs per host tile while the packed stack is
-        built; must be a multiple of 128. ``None`` (default) auto-sizes to
+      snp_tile: number of SNPs per tile — while the packed stack is built,
+        and in the exact engine's W and T tiles; must be a multiple of 128. ``None`` (default) auto-sizes to
         ~512 MB of float32 per tile.
       availmem_gb: host-RAM budget per block for out-of-core streaming —
         the reference's ``availmemGb`` knob.
-      device_cache_gb: the JAX package's device budget for its resident
-        packed stack. This package does not read it: the stack is the only
-        matrix-free path here, so it is held against the card's free memory
-        (engine_torch.TiledScan) and refused when it does not fit.
-      host_eigh_max_n: the exact engine's host/device eigendecomposition
-        threshold (that engine is not in this package yet).
+      device_cache_gb: device budget of the exact engine: its recoded W
+        tiles and their eigenbasis images T stay on the device when
+        p·n·itemsize fits half of it (else each sweep recomputes T from the
+        stack). The packed stack itself is not budgeted by it: it is held
+        against the card's free memory (engine_torch.TiledScan) and refused
+        when it does not fit.
+      host_eigh_max_n: the exact engine's eigendecomposition runs on the
+        host in float64 up to this many individuals (U kept on the host),
+        and above it in float32 on the device (U kept there).
       matfree_min_n: ``am(engine="auto")`` switches to the matrix-free
         engine above this many individuals — the regime where even the
         device-f32 n×n kernel/eigenbasis strains HBM (n=32768 f32 ≈ 4.3 GB

@@ -137,14 +137,21 @@ def test_krylov_primitives_match_jax():
 
 
 def test_engines_not_in_this_slice_raise(pallas_store):
+    """What the port does not carry yet raises: the multi-device engine,
+    Zmat on the matrix-free engine and the matrix-free am_multi (forced,
+    or by "auto" above matfree_min_n)."""
     _, sim = pallas_store
-    with pytest.raises(NotImplementedError, match="exact eigenbasis"):
-        port.am("y", sim.geno, {"y": sim.y}, engine="auto", device="cpu")
-    with pytest.raises(NotImplementedError, match="exact eigenbasis"):
-        port.am("y", sim.geno, {"y": sim.y}, engine="jax", device="cpu")
+    with pytest.raises(NotImplementedError, match="multi-device"):
+        port.am("y", sim.geno, {"y": sim.y}, engine="sharded", device="cpu")
     with pytest.raises(NotImplementedError, match="Zmat"):
         port.am("y", sim.geno, {"y": sim.y}, Zmat=np.eye(NP_),
                 engine="matfree", device="cpu")
+    with pytest.raises(NotImplementedError, match="matrix-free"):
+        port.am_multi(["y"], sim.geno, {"y": sim.y}, engine="matfree",
+                      device="cpu")
+    with pytest.raises(NotImplementedError, match="matrix-free"):
+        port.am_multi(["y"], sim.geno, {"y": sim.y}, device="cpu",
+                      config=port.EagleConfig(matfree_min_n=NP_ - 1))
 
 
 def test_cuda_asked_for_and_absent_raises(pallas_store, monkeypatch):

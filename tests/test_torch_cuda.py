@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+"""The port's CUDA kernels against their plain PyTorch versions, and the
+exact engine on the card against the CPU.
 
 These tests need an NVIDIA GPU (the kernels have no CPU mode) and skip
 without one. They import neither JAX nor the JAX package, so they run on a
@@ -96,6 +97,47 @@ def test_launch_counts_and_repeatability(cuda):
     torch.cuda.synchronize()
     assert torch.equal(a, b)          # split-K reduced in a fixed order
     assert packed.LAUNCHES == {"packed_dot": 1, "packed_tdot": 3}
+
+
+def test_exact_ops_on_card_match_cpu(cuda):
+    """The exact engine's MMt and eigenbasis sweep on the card against the
+    CPU: fp32 sums of up to 3001 terms in another order (≈ 3e-6 of scale),
+    no TF32, and no launch of the packed-stack kernels."""
+    packed.reset_launches()
+    sc_g, _, _, rng = _scan(1001, cuda)
+    sc_c, _, _, _ = _scan(1001, "cpu")
+    Kg, Kc = sc_g.compute_K(), sc_c.compute_K()
+    np.testing.assert_allclose(Kg, Kc, rtol=1e-5,
+                               atol=1e-5 * np.abs(Kc).max())
+    d, U = np.linalg.eigh(engine_torch.normalized_kernel(Kc))
+    d = np.maximum(d, 0.0)
+    sc_g.set_eigenbasis(U)
+    sc_c.set_eigenbasis(U)
+    X = np.column_stack([np.ones(1001), rng.standard_normal(1001)])
+    y = rng.standard_normal(1001)
+    s, Q, z3 = engine_torch._eig_iteration_state(d, U.T @ y, U.T @ X, 0.7, 8)
+    tg, tc = sc_g.sweep_eig(s, Q, z3, 0.9), sc_c.sweep_eig(s, Q, z3, 0.9)
+    np.testing.assert_allclose(tg, tc, rtol=1e-4, atol=1e-4 * tc.max())
+    assert tg[5] == 0.0                 # the all-missing SNP
+    assert packed.LAUNCHES == {"packed_dot": 0, "packed_tdot": 0}
+
+
+@pytest.mark.parametrize("host_eigh_max_n", [8192, 8])
+def test_exact_am_on_card_matches_cpu(cuda, host_eigh_max_n):
+    """am(engine="jax") on the card and on the CPU select the same SNPs,
+    with the eigendecomposition on the host (f64) or on the card (f32
+    cuSOLVER against f32 LAPACK: a looser extBIC tolerance)."""
+    from eagleeverything_tpu_torch import am
+    from eagleeverything_tpu_torch.data.simulate import simulate_dataset
+    sim = simulate_dataset(n=300, p=2000, n_qtl=3, seed=11,
+                           missing_rate=0.02)
+    cfg = EagleConfig(host_eigh_max_n=host_eigh_max_n)
+    res = {d: am("y", sim.geno, {"y": sim.y}, maxit=6, engine="jax",
+                 config=cfg, device=d) for d in (cuda, "cpu")}
+    assert res[cuda].indices == res["cpu"].indices
+    assert len(res["cpu"].indices) >= 1
+    np.testing.assert_allclose(res[cuda].extbic_path, res["cpu"].extbic_path,
+                               rtol=1e-6 if host_eigh_max_n == 8192 else 1e-4)
 
 
 @pytest.mark.parametrize("r", [2, 8, 16, 32, 64, 137, 145])
