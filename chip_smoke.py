@@ -40,7 +40,21 @@ Phases, each fatal when its check fails:
    65 536 — the eigendecomposition runs on the card (n > host_eigh_max_n)
    and U never reaches the host, T is recomputed every sweep (p·n·4 bytes
    exceed half of device_cache_gb); every selected SNP must be planted;
-10. a summary line per kernel and the kernels' JSON line, then the last
+10. Eagle's workflow on BASELINE config 2, uncut, through files: phase 8's
+   cohort written by the port's writers (PLINK .bed/.bim/.fam, spaced
+   ASCII, phenotypes, map), read back by ``read_marker`` with the native
+   ingest into stores that must hold phase 8's shard bytes, ``am()`` from
+   the .bed (phase 8's selection and extBIC path), ``summary_am`` exact and
+   matrix-free (the latter's packed_dot/packed_tdot launches counted around
+   exactly that call, the first launch of each kernel at each width held
+   against its plain version on the same operand; β and se within
+   tests/test_api.py's bands),
+   ``fpr4am`` with 100 permutations, ``plot_am`` to .html, and the CLI as
+   a process of its own (the same selection);
+11. ``fpr4am`` (20 permutations) and the exact ``summary_am`` on phase 7's
+   cohort, card against CPU: the same candidates, λ_crit, β, se and p
+   within rtol 1e-6;
+12. a summary line per kernel and the kernels' JSON line, then the last
    line ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside a checkout, it exits non-zero with no result line.
@@ -49,6 +63,7 @@ Without CUDA, or outside a checkout, it exits non-zero with no result line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -268,6 +283,41 @@ class OpTimer:
                 "pct_fp32_peak": 100 * flops / (ms * 1e-3) / FP32_FLOPS_PER_S,
                 "pct_hbm": 100 * nbytes / (ms * 1e-3) / HBM_BYTES_PER_S}
         return out
+
+
+class LaunchRecorder:
+    """For the length of a ``with`` block, wraps packed_dot, packed_tdot and
+    kernel_matvec of ``packed`` (the engine and kernel_matvec itself look
+    them up through the module at call time) so that the first call at each
+    width keeps a copy of its operand and its result. It launches nothing
+    of its own, so the launch counts stay the path's."""
+
+    NAMES = ("packed_dot", "packed_tdot", "kernel_matvec")
+
+    def __init__(self, packed):
+        self.packed = packed
+        self.kept = {}      # (name, r) → (Wp, means, n, operand, result)
+        self._saved = {}
+
+    def __enter__(self):
+        for name in self.NAMES:
+            self._saved[name] = getattr(self.packed, name)
+            setattr(self.packed, name, self._wrap(name, self._saved[name]))
+        return self
+
+    def _wrap(self, name, fn):
+        def call(Wp, X, means, n):
+            out = fn(Wp, X, means, n)
+            if (name, X.shape[1]) not in self.kept:
+                self.kept[(name, X.shape[1])] = (Wp, means, n, X.clone(),
+                                                 out.clone())
+            return out
+        return call
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved.items():
+            setattr(self.packed, name, fn)
+        return False
 
 
 def exact_op_targets(torch, kernels) -> dict:
@@ -559,7 +609,7 @@ def main_path_phase(torch, ep, packed, tmp: str, n: int, p: int, seed: int,
             "indices": res.indices}
 
 
-def exact_parity_phase(torch, ep, tmp: str, seed: int, dev) -> float:
+def exact_parity_phase(torch, ep, tmp: str, seed: int, dev) -> dict:
     from eagleeverything_tpu_torch.data.simulate import simulate_cohort
     n, p = 2000, 20000
     phase(f"7. exact parity: am(engine='jax') at n={n}, p={p} on cuda and "
@@ -584,7 +634,7 @@ def exact_parity_phase(torch, ep, tmp: str, seed: int, dev) -> float:
     print(f"largest relative extBIC gap, cuda vs cpu: {gap:.3e} (limit 1e-6)")
     check(gap <= 1e-6, f"cuda and cpu extBIC paths differ by {gap:.3e} > "
           "1e-6 relative")
-    return gap
+    return {"gap": gap, "cohort": c, "result": out["cuda"]}
 
 
 def exact_scan_phase(torch, ep, packed, kernels, engine_torch, tmp: str,
@@ -652,7 +702,8 @@ def exact_scan_phase(torch, ep, packed, kernels, engine_torch, tmp: str,
           "mmt_accumulate was not called once a tile")
     return {"wall_s": wall, "peak_bytes": peak, "phases": phases,
             "snps_per_s": snps_s, "ops": ops, "n_tiles": n_tiles,
-            "basis": timer.last["eigh_basis"], "indices": res.indices}
+            "basis": timer.last["eigh_basis"], "indices": res.indices,
+            "extbic_path": res.extbic_path, "cohort": c}
 
 
 def config2_phase(torch, ep, packed, kernels, engine_torch, tmp: str,
@@ -695,6 +746,277 @@ def large_n_phase(torch, ep, packed, kernels, engine_torch, tmp: str,
     return out
 
 
+def write_phase_files(sim_mod, sim, d: str) -> dict:
+    """The workflow's input files, written by the port's writers: PLINK
+    .bed/.bim/.fam, spaced ASCII with one-character codes, the phenotype
+    table with its covariates, and the map. Prints each file's size and
+    write time."""
+    os.makedirs(d, exist_ok=True)
+    f = {"bed": os.path.join(d, "geno.bed"), "txt": os.path.join(d,
+                                                                  "geno.txt"),
+         "pheno": os.path.join(d, "pheno.txt"),
+         "map": os.path.join(d, "map.txt")}
+    writes = (
+        ("bed", lambda: sim_mod.write_plink_bed(sim, f["bed"]),
+         [f["bed"], f["bed"][:-4] + ".bim", f["bed"][:-4] + ".fam"]),
+        ("txt", lambda: sim_mod.write_ascii_geno(sim, f["txt"], AA="0",
+                                                 AB="1", BB="2"), [f["txt"]]),
+        ("pheno", lambda: sim_mod.write_pheno(sim, f["pheno"]), [f["pheno"]]),
+        ("map", lambda: sim_mod.write_map(sim, f["map"]), [f["map"]]))
+    for name, write, paths in writes:
+        t0 = time.perf_counter()
+        write()
+        wall = time.perf_counter() - t0
+        size = sum(os.path.getsize(p) for p in paths)
+        print(f"  wrote {name:5s} {size / 1e6:9.1f} MB in {wall:6.2f} s "
+              f"({', '.join(os.path.basename(p) for p in paths)})",
+              flush=True)
+    return f
+
+
+def same_shards(a, b) -> bool:
+    """Two stores hold the same shard files, byte for byte."""
+    import filecmp
+    if a.shard_offsets != b.shard_offsets or (a.n, a.p) != (b.n, b.p):
+        return False
+    return all(filecmp.cmp(os.path.join(a.dir, f"shard_{k:05d}.bin"),
+                           os.path.join(b.dir, f"shard_{k:05d}.bin"),
+                           shallow=False) for k in range(a.n_shards))
+
+
+def summary_kernel_checks(torch, packed, kept: dict, delta: float) -> dict:
+    """Hold each launch that the matrix-free summary kept (the first at each
+    width: the s0 probe's and the CG's) against the plain version on the
+    same operand, at TOL. Then print how much of H·P = K·P/s0 + δ·P the
+    kernel carries in the first CG step: where δ dominates, the summary's
+    β and se barely depend on K, and only these checks hold the kernels.
+    Returns {kernel: worst rel err}."""
+    worst = {}
+    for (name, r), (Wp, means, n, X, got) in sorted(kept.items()):
+        ref = getattr(packed, f"{name}_plain")(Wp, X, means, n)
+        err, rel = rel_err(torch, got, ref)
+        worst[name] = max(worst.get(name, 0.0), rel)
+        print(f"  {name:14s} n={n} p={Wp.shape[0]} r={r:3d} (as the "
+              f"matrix-free summary launched it): max abs err {err:.3e}, "
+              f"rel {rel:.3e}")
+        check(rel <= TOL, f"{name} disagrees with its plain version on the "
+              f"matrix-free summary's operand at r={r}: rel {rel:.3e}")
+    check(set(worst) == set(LaunchRecorder.NAMES),
+          f"the matrix-free summary called only {sorted(worst)}")
+    widths = sorted(r for name, r in kept if name == "kernel_matvec")
+    if 16 in widths and len(widths) > 1:
+        _, _, n, Z, KZ = kept[("kernel_matvec", 16)]
+        s0 = float((Z * KZ).sum(0).mean()) / n
+        _, _, _, P, KP = kept[("kernel_matvec",
+                               next(r for r in widths if r != 16))]
+        share = float(KP.norm()) / s0 / (delta * float(P.norm()))
+        print(f"  first CG step: |K·P/s0| / |δ·P| = {share:.3e} (s0 "
+              f"{s0:.2f}, δ {delta:.4g})", flush=True)
+    return worst
+
+
+def workflow_phase(torch, ep, packed, engine_torch, tmp: str, cfg2: dict,
+                   seed: int) -> dict:
+    """Eagle's workflow around am() at BASELINE config 2, uncut, on phase
+    8's cohort through files: write them, read them with the native
+    ingest, scan, summarise (exact and matrix-free), calibrate λ, plot to
+    .html and run the CLI."""
+    from eagleeverything_tpu_torch.data import simulate as sim_mod
+    from eagleeverything_tpu_torch.io import native
+    c = cfg2["cohort"]
+    n, p = c.n, c.p
+    phase(f"10. Eagle's workflow on BASELINE config 2 ({n} x {p}, uncut) "
+          "through files: write, read_marker (native), am, summary_am "
+          "(exact, matfree), fpr4am (100 permutations), plot_am (.html), "
+          "the CLI")
+    out: dict = {}
+    store = ep.GenotypeStore.open(c.store_dir)
+    t0 = time.perf_counter()
+    G = store.to_dense()
+    print(f"phase 8's store: {store.n_shards} shards, to_dense "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    rng = np.random.default_rng(seed)
+    chrom = np.arange(p) * 20 // p + 1          # 20 chromosomes
+    pos = np.concatenate([np.sort(rng.integers(1, 150_000_000,
+                                               int((chrom == k).sum())))
+                          for k in range(1, 21)])
+    sim = sim_mod.SimData(
+        geno=G, y=c.y, qtl_idx=c.qtl_idx, qtl_beta=c.qtl_beta, chrom=chrom,
+        pos=pos, marker_names=[f"snp{j:06d}" for j in range(p)],
+        covariate=rng.uniform(20, 60, size=n).round(1),
+        group=rng.integers(0, 2, size=n))
+    files = write_phase_files(sim_mod, sim, os.path.join(tmp, "workflow"))
+    del G, sim
+
+    check(native.get_lib() is not None,
+          "the native ingest library did not build or load")
+    print(f"native ingest library loaded: {native.lib_path()}")
+    handles = {}
+    for name, kw in (("bed", {"type": "PLINK"}),
+                     ("txt", {"AA": "0", "AB": "1", "BB": "2"})):
+        path = files[name]
+        t0 = time.perf_counter()
+        h = ep.read_marker(path, store_dir=path + ".store", packed=True,
+                           n_shards=store.n_shards, **kw)
+        wall = time.perf_counter() - t0
+        mb = os.path.getsize(path) / 1e6
+        out[f"read_{name}"] = {"s": wall, "MB_per_s": mb / wall}
+        print(f"read_marker {os.path.basename(path)}: {mb:.1f} MB in "
+              f"{wall:.2f} s, {mb / wall:.1f} MB/s", flush=True)
+        check((h.n, h.p) == (n, p), f"{name}: read {h.n} x {h.p}")
+        check(same_shards(ep.GenotypeStore.open(h.store_dir), store),
+              f"the store read from {name} differs from phase 8's")
+        handles[name] = h
+    print("both stores hold phase 8's shard bytes")
+
+    pheno = ep.read_pheno(files["pheno"])
+    mp = ep.read_map(files["map"])
+    h = handles["bed"]
+    t0 = time.perf_counter()
+    res = ep.am("y", h, pheno, map=mp, maxit=10)
+    torch.cuda.synchronize()
+    out["am_s"] = time.perf_counter() - t0
+    gap = float(np.max(np.abs(np.subtract(res.extbic_path,
+                                          cfg2["extbic_path"]))
+                       / np.abs(cfg2["extbic_path"])))
+    print(f"am(): {out['am_s']:.2f} s, selected {res.indices} "
+          f"{res.marker_names}, extBIC {res.extbic_path}; phase 8: "
+          f"{cfg2['indices']}, largest relative extBIC gap {gap:.3e} (y is "
+          "read back at 6 decimals)", flush=True)
+    check(res.indices == cfg2["indices"], "the scan from files selected "
+          f"{res.indices}, phase 8 {cfg2['indices']}")
+    check(gap <= 1e-5, f"extBIC path differs from phase 8's by {gap:.3e}")
+    check(res.marker_names == [mp.marker_names[j] for j in res.indices],
+          "marker names do not come from the map")
+
+    sums = {}
+    rec = LaunchRecorder(packed)
+    for engine in ("exact", "matfree"):
+        packed.reset_launches()
+        t0 = time.perf_counter()
+        with rec if engine == "matfree" else contextlib.nullcontext():
+            sums[engine] = ep.summary_am(res, "y", h, pheno, quiet=True,
+                                         engine=engine)
+        torch.cuda.synchronize()
+        out[f"summary_{engine}_s"] = time.perf_counter() - t0
+        out[f"summary_{engine}_launches"] = dict(packed.LAUNCHES)
+        s = sums[engine]
+        print(f"summary_am(engine='{engine}'): "
+              f"{out[f'summary_{engine}_s']:.2f} s, beta {s.beta}, se "
+              f"{s.se}, p {s.pvalue}, %var {100 * s.var_explained}; "
+              f"kernel launches {dict(packed.LAUNCHES)}", flush=True)
+        check(bool(np.all(s.pvalue < 0.05)), f"{engine}: a selected planted "
+              f"marker has p >= 0.05: {s.pvalue}")
+    ex, mf = sums["exact"], sums["matfree"]
+    check(np.allclose(mf.beta, ex.beta, rtol=0.05, atol=0.0)
+          and np.allclose(mf.se, ex.se, rtol=0.10, atol=0.0),
+          "the matrix-free summary is outside tests/test_api.py's bands "
+          "(beta rtol 0.05, se rtol 0.10)")
+    for k in KERNELS:
+        check(out["summary_matfree_launches"][k] >= 1,
+              f"{k} was never launched by the matrix-free summary")
+    check(not any(out["summary_exact_launches"].values()),
+          "the exact summary launched packed-stack kernels")
+    out["summary_matfree_rel_err"] = summary_kernel_checks(
+        torch, packed, rec.kept, res.delta)
+
+    def sweep_cost(a):
+        s, Q = a[1], a[2]
+        R, q = s.shape[0], Q.shape[2]
+        return (R * (2 * p * n * (1 + q) + 3 * p * n),
+                4 * (p * n + R * n * (q + 2) + R * p))
+
+    targets = {"sweep_eig_batched": (engine_torch.TiledScan,
+                                     "sweep_eig_batched", sweep_cost)}
+    reps = 100
+    with OpTimer(torch, targets) as timer:
+        t0 = time.perf_counter()
+        cal = ep.fpr4am("y", h, pheno, numreps=reps, seed=1)
+        torch.cuda.synchronize()
+        out["fpr4am_s"] = time.perf_counter() - t0
+    sweep = timer.report()["sweep_eig_batched"]
+    out["fpr4am_sweep_ms"] = sweep.get("ms", 0.0)
+    crits = np.asarray(cal["lambda_crits"])
+    print(f"fpr4am({reps} permutations): {out['fpr4am_s']:.2f} s, "
+          f"{out['fpr4am_s'] / reps * 1e3:.2f} ms a permutation; "
+          f"sweep_eig_batched {sweep['calls']} call(s), "
+          f"{out['fpr4am_sweep_ms']:.2f} ms; lambda* {cal['lambda']:.4f}, "
+          f"lambda_crit range [{crits.min():.3f}, {crits.max():.3f}]",
+          flush=True)
+    print_ops({"sweep_eig_batched": sweep})
+    check(bool(np.all(np.isfinite(crits))) and crits.size == reps,
+          "non-finite lambda_crit")
+    check(cal["lambda"] >= 0.0, "negative calibrated lambda")
+
+    html = os.path.join(tmp, "workflow", "scan.html")
+    t0 = time.perf_counter()
+    ep.plot_am(res, mp, save=html)
+    out["plot_s"] = time.perf_counter() - t0
+    with open(html) as f:
+        text = f.read()
+    print(f"plot_am(.html): {out['plot_s']:.2f} s, {len(text) / 1e6:.2f} MB")
+    check(all(name in text for name in res.marker_names),
+          "the .html plot does not name every selected marker")
+    check("matplotlib" not in sys.modules, "matplotlib was imported")
+
+    cli_json = os.path.join(tmp, "workflow", "cli.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "eagleeverything_tpu_torch.cli", "am",
+         "--geno", files["bed"], "--geno-type", "PLINK", "--pheno",
+         files["pheno"], "--trait", "y", "--map", files["map"], "--maxit",
+         "10", "--json", cli_json],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+        text=True, timeout=600)
+    out["cli_s"] = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the CLI failed: {proc.stderr[-2000:]}")
+    with open(cli_json) as f:
+        cli_res = json.load(f)
+    print(f"CLI am (a process of its own): {out['cli_s']:.2f} s, indices "
+          f"{cli_res['indices']}", flush=True)
+    check(cli_res["indices"] == res.indices, "the CLI selected "
+          f"{cli_res['indices']}, the API {res.indices}")
+    return out
+
+
+def fpr_parity_phase(torch, ep, parity: dict) -> dict:
+    """fpr4am and the exact summary_am on the card against the CPU, on
+    phase 7's cohort: K is a sum of integers, exact in f32, so the host
+    REML sees the same inputs on both."""
+    c = parity["cohort"]
+    phase(f"11. fpr4am and summary_am parity, cuda against cpu, at "
+          f"{c.n} x {c.p} (20 permutations)")
+    h = ep.GenoHandle(n=c.n, p=c.p, source="exact_parity",
+                      store_dir=c.store_dir)
+    pheno = {"y": c.y}
+    cal, summ = {}, {}
+    for d in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        cal[d] = ep.fpr4am("y", h, pheno, numreps=20, seed=1, device=d)
+        summ[d] = ep.summary_am(parity["result"], "y", h, pheno, quiet=True,
+                                engine="exact", device=d)
+        print(f"{d}: candidates {cal[d]['candidates'].tolist()}  lambda* "
+              f"{cal[d]['lambda']:.6f}  p {summ[d].pvalue}  "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    def rel(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300)))
+
+    gaps = {"lambda_crits": rel(cal["cuda"]["lambda_crits"],
+                                cal["cpu"]["lambda_crits"])}
+    for f in ("beta", "se", "pvalue"):
+        gaps[f] = rel(getattr(summ["cuda"], f), getattr(summ["cpu"], f))
+    print("largest relative gaps, cuda vs cpu (limit 1e-6): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items()))
+    check(np.array_equal(cal["cuda"]["candidates"],
+                         cal["cpu"]["candidates"]),
+          "fpr4am's per-permutation candidates differ between cuda and cpu")
+    check(max(gaps.values()) <= 1e-6,
+          f"cuda and cpu differ beyond rtol 1e-6: {gaps}")
+    return gaps
+
+
 def run(args) -> None:
     import torch
 
@@ -717,26 +1039,38 @@ def run(args) -> None:
         parity_phase(torch, ep, tmp, args.seed, dev)
         main = main_path_phase(torch, ep, packed, tmp, N, args.p,
                                args.seed, dev)
-        exact_parity_phase(torch, ep, tmp, args.seed, dev)
-        config2_phase(torch, ep, packed, kernels, engine_torch, tmp,
-                      args.seed, dev)
+        parity = exact_parity_phase(torch, ep, tmp, args.seed, dev)
+        cfg2 = config2_phase(torch, ep, packed, kernels, engine_torch, tmp,
+                             args.seed, dev)
         large_n_phase(torch, ep, packed, kernels, engine_torch, tmp,
                       args.seed, dev)
+        flow = workflow_phase(torch, ep, packed, engine_torch, tmp, cfg2,
+                              args.seed)
+        fpr_parity_phase(torch, ep, parity)
 
-    phase("10. kernels")
+    phase("12. kernels")
     entries = []
     head = 64
     for name, meta in KERNELS.items():
         by_r = timing[name]
         m = by_r[head]
         print(f"{name}: checked (ragged worst rel err {ragged[name]:.2e}), "
-              f"launches on the main path {main['launches'][name]}, "
+              f"launches on the main path {main['launches'][name]}, in the "
+              "matrix-free summary_am "
+              f"{flow['summary_matfree_launches'][name]} (rel err there "
+              f"{flow['summary_matfree_rel_err'][name]:.2e}), "
               + ", ".join(f"r={r}: {v['ms']:.3f} ms"
                           for r, v in by_r.items()))
         entries.append({
             "name": name, "route": "cuda", "source": meta["source"],
             "replaces": meta["replaces"],
             "launches": main["launches"][name],
+            "launches_by_path": {
+                "am_matfree": main["launches"][name],
+                "summary_am_matfree":
+                    flow["summary_matfree_launches"][name]},
+            "summary_am_matfree_rel_err":
+                flow["summary_matfree_rel_err"][name],
             "max_abs_err": max(v["max_abs_err"] for v in by_r.values()),
             "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],

@@ -49,8 +49,9 @@ def am(
 
     Args:
       trait: phenotype column name holding the trait.
-      geno: a :class:`GenoHandle` over in-memory genotypes or a genotype
-        store directory (or a raw int8 {0,1,2,-9} n×p matrix).
+      geno: handle from :func:`read_marker` (a :class:`GenoHandle` over
+        in-memory genotypes or a genotype store), or a raw int8
+        {0,1,2,-9} n×p matrix.
       pheno: handle from :func:`read_pheno`, a dict of named columns, or a
         bare trait vector.
       fformula: fixed-effects formula RHS over phenotype columns
@@ -62,7 +63,7 @@ def am(
         engine take it, the matrix-free engine not yet.
       maxit: maximum forward-selection steps (reference default 40).
       fixit: force exactly ``maxit`` selections, ignoring extBIC.
-      lam: extBIC sparsity weight λ/gamma.
+      lam: extBIC sparsity weight λ/gamma (calibrate with :func:`fpr4am`).
       engine: "auto" (the exact eigenbasis engine up to
         ``config.matfree_min_n`` individuals, "matfree" above it, where the
         n×n kernel no longer fits), "jax" (the exact engine, under the JAX
@@ -84,7 +85,7 @@ def am(
     if engine == "sharded":
         raise NotImplementedError(
             "engine 'sharded': multi-device runs are not in the PyTorch "
-            "port yet (ROADMAP.md, multi-process); use engine='jax' on one "
+            "port yet (ROADMAP.md queue 1 item 9); use engine='jax' on one "
             "device")
     if engine == "oracle":
         geno_raw = prep.handle.materialize()
@@ -109,7 +110,8 @@ def am(
         if prep.Z is not None:
             raise NotImplementedError(
                 "Zmat on the matrix-free engine is not in the PyTorch port "
-                "yet; use engine='oracle'")
+                "yet (ROADMAP.md queue 1 item 6); use engine='jax' or "
+                "'oracle'")
         from eagleeverything_tpu_torch.models import bigscan, engine_torch
         src = engine_torch._make_source(prep.handle, prep.keep_individuals)
         backend = engine_torch.TiledScan(src, config, dev)
@@ -160,6 +162,9 @@ def am_multi(
     quiet: bool = True,
     engine: str = "auto",
     config: EagleConfig = DEFAULT_CONFIG,
+    ckpt_dir: Optional[str] = None,
+    resume: bool = False,
+    log_jsonl: Optional[str] = None,
     device: Optional[Union[str, torch.device]] = None,
 ) -> dict[str, AMResult]:
     """Scan several traits in one pass (BASELINE config 5).
@@ -173,7 +178,10 @@ def am_multi(
     ``engine``: "auto" or "jax" (the exact eigenbasis engine). The
     matrix-free multi-trait scan ("matfree", and "auto" above
     ``config.matfree_min_n`` individuals) is not in this package yet and
-    raises NotImplementedError. ``device`` as in :func:`am`.
+    raises NotImplementedError. ``ckpt_dir``, ``resume`` and ``log_jsonl``
+    are accepted as the JAX package accepts them; the exact engine runs
+    unchanged under them, as there (the matrix-free engine will honour
+    them). ``device`` as in :func:`am`.
     """
     from eagleeverything_tpu_torch.api.design import build_design, na_rows
     from eagleeverything_tpu_torch.models import engine_torch
@@ -210,7 +218,7 @@ def am_multi(
     if engine == "matfree":
         raise NotImplementedError(
             "am_multi on the matrix-free engine is not in the PyTorch port "
-            "yet (ROADMAP.md, am_multi on the matrix-free engine); up to "
+            "yet (ROADMAP.md queue 1 item 7); up to "
             f"matfree_min_n={config.matfree_min_n} individuals use "
             "engine='jax'")
     if engine != "jax":

@@ -2,6 +2,9 @@
 
 - :func:`simulate_dataset` — the JAX package's test/tutorial generator
   (LD blocks, polygenic background), numpy, deterministic given a seed.
+- the writers of the reference's file formats (:func:`write_ascii_geno`,
+  :func:`write_plink_bed`, :func:`write_vcf`, … :func:`write_tutorial`),
+  byte for byte the JAX package's;
 - :func:`simulate_cohort` — a biobank-sized cohort written straight into a
   2-bit genotype store: per-SNP MAF, Hardy-Weinberg genotypes drawn on the
   given device, planted QTL and a trait (the logic of the JAX package's
@@ -11,11 +14,13 @@
 from __future__ import annotations
 
 import dataclasses
+import os
+from typing import Iterator
 
 import numpy as np
 import torch
 
-from eagleeverything_tpu_torch.io.genostore import GenotypeStore
+from eagleeverything_tpu_torch.io.genostore import MISSING, GenotypeStore
 from eagleeverything_tpu_torch.utils.device import resolve_device
 
 
@@ -122,7 +127,164 @@ def _norm_ppf(q: np.ndarray) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# Writers for the reference's text formats (exercised by the ingest tests)
+# Writers for the reference's text formats (exercised by the ingest tests).
+# Each writes the bytes the JAX package's writer of the same name writes,
+# building whole rows with numpy where that one loops per genotype.
+# ---------------------------------------------------------------------------
+
+_BLOCK_BYTES = 1 << 26      # .bed bytes built and written a block at a time
+
+
+def _code_index(G: np.ndarray) -> np.ndarray:
+    """Genotypes {0, 1, 2, -9} → token indices {0, 1, 2, 3}."""
+    G = np.asarray(G)
+    if not np.isin(G, (0, 1, 2, MISSING)).all():
+        raise KeyError("genotypes must be coded 0, 1, 2 or -9")
+    return np.where(G == MISSING, 3, G).astype(np.intp)
+
+
+def _joined_rows(G: np.ndarray, tokens: tuple[str, str, str, str],
+                 sep: str) -> Iterator[list[bytes]]:
+    """Yield the rows of G, 256 at a time, each as the bytes of its
+    genotypes' tokens (``tokens[k]`` for code k, index 3 for missing)
+    joined by ``sep``."""
+    table = np.array(tokens, dtype=object)
+    for r0 in range(0, G.shape[0], 256):
+        yield [sep.join(table[row].tolist()).encode()
+               for row in _code_index(G[r0 : r0 + 256])]
+
+
+def write_ascii_geno(
+    sim: SimData, path: str, AA: str = "AA", AB: str = "AB", BB: str = "BB",
+    missing: str = "NA", sep: str = " ",
+) -> None:
+    """Space-separated ASCII genotypes, one row per individual (reference:
+    ``ReadMarker(type='text')`` input, SURVEY.md §3.1/§4.1)."""
+    with open(path, "wb") as f:
+        for rows in _joined_rows(sim.geno, (AA, AB, BB, missing), sep):
+            f.write(b"".join(r + b"\n" for r in rows))
+
+
+def write_ascii_geno_nospace(sim: SimData, path: str) -> None:
+    """Single-character no-space coding 0/1/2 (reference supports a no-space
+    text variant; missing = 'X' here)."""
+    write_ascii_geno(sim, path, "0", "1", "2", "X", sep="")
+
+
+def write_pheno(sim: SimData, path: str, trait_name: str = "y") -> None:
+    """Space-separated phenotype table with header (reference:
+    ``ReadPheno()`` input). Columns: trait, numeric covariate, factor."""
+    with open(path, "w") as f:
+        f.write(f"{trait_name} age sex\n")
+        for yi, c, g in zip(sim.y, sim.covariate, sim.group):
+            f.write(f"{yi:.6f} {c:.1f} {'M' if g else 'F'}\n")
+
+
+def write_map(sim: SimData, path: str) -> None:
+    """Marker map: Mrk Chr Pos (reference: ``ReadMap()`` input)."""
+    with open(path, "w") as f:
+        f.write("Mrk Chr Pos\n")
+        for name, c, bp in zip(sim.marker_names, sim.chrom, sim.pos):
+            f.write(f"{name} {c} {bp}\n")
+
+
+def _family_lead(sim: SimData, i: int) -> str:
+    return f"FAM{i+1} IND{i+1} 0 0 {1 + int(sim.group[i])} {sim.y[i]:.6f}"
+
+
+def write_plink_ped(sim: SimData, ped_path: str, map_path: str) -> None:
+    """PLINK .ped/.map pair (reference: ``ReadMarker(type='PLINK')``).
+
+    .ped: FID IID PID MID SEX PHENO then two allele chars per SNP
+    (A=ref, B=alt → AA/AB/BB; 0 0 = missing).
+    """
+    with open(ped_path, "wb") as f:
+        i = 0
+        for rows in _joined_rows(sim.geno, ("A A", "A B", "B B", "0 0"),
+                                 " "):
+            for r in rows:
+                f.write(_family_lead(sim, i).encode() + b" " + r + b"\n")
+                i += 1
+    with open(map_path, "w") as f:
+        for name, c, bp in zip(sim.marker_names, sim.chrom, sim.pos):
+            f.write(f"{c} {name} 0 {bp}\n")
+
+
+def write_plink_bed(sim: SimData, bed_path: str) -> None:
+    """Binary PLINK .bed/.bim/.fam trio (SNP-major, 2-bit).
+
+    Codes per PLINK spec: 00=hom A1, 01=missing, 10=het, 11=hom A2, with
+    dose = count of A1, so dose {2,1,0,missing} → {00,10,11,01}. The pad
+    individuals of a SNP's last byte code 00.
+    """
+    base = bed_path[:-4] if bed_path.endswith(".bed") else bed_path
+    n, p = sim.geno.shape
+    code = np.array([0b11, 0b10, 0b00, 0b01], dtype=np.uint8)  # 0, 1, 2, -9
+    bpr = (n + 3) // 4
+    snps = max(1, _BLOCK_BYTES // max(4 * bpr, 1))
+    with open(base + ".bed", "wb") as f:
+        f.write(bytes([0x6C, 0x1B, 0x01]))
+        for j0 in range(0, p, snps):
+            c = code[_code_index(sim.geno[:, j0 : j0 + snps].T)]
+            q = np.zeros((c.shape[0], 4 * bpr), dtype=np.uint8)
+            q[:, :n] = c
+            q = q.reshape(c.shape[0], bpr, 4)
+            f.write((q[..., 0] | (q[..., 1] << 2) | (q[..., 2] << 4)
+                     | (q[..., 3] << 6)).tobytes())
+    with open(base + ".bim", "w") as f:
+        for name, c, bp in zip(sim.marker_names, sim.chrom, sim.pos):
+            f.write(f"{c}\t{name}\t0\t{bp}\tA\tB\n")
+    with open(base + ".fam", "w") as f:
+        for i in range(n):
+            f.write(_family_lead(sim, i) + "\n")
+
+
+# the JAX package's source tag, so both packages write the same file
+_VCF_SOURCE = "##source=%s.simulate\n" % "eagleeverything_tpu"
+
+
+def write_vcf(sim: SimData, path: str) -> None:
+    """Minimal VCF with GT fields (reference: ``ReadMarker(type='vcf')``).
+
+    Note the orientation: VCF rows are SNPs, columns are individuals."""
+    n, p = sim.geno.shape
+    with open(path, "wb") as f:
+        f.write(b"##fileformat=VCFv4.2\n")
+        f.write(_VCF_SOURCE.encode())
+        header = ["#CHROM", "POS", "ID", "REF", "ALT", "QUAL", "FILTER",
+                  "INFO", "FORMAT"]
+        header += [f"IND{i+1}" for i in range(n)]
+        f.write(("\t".join(header) + "\n").encode())
+        j = 0
+        for rows in _joined_rows(sim.geno.T, ("0/0", "0/1", "1/1", "./."),
+                                 "\t"):
+            for r in rows:
+                lead = (f"{sim.chrom[j]}\t{sim.pos[j]}\t{sim.marker_names[j]}"
+                        "\tA\tB\t.\tPASS\t.\tGT\t")
+                f.write(lead.encode() + r + b"\n")
+                j += 1
+
+
+def write_zmat(Z: np.ndarray, path: str) -> None:
+    """0/1 incidence matrix, space-separated (reference: ``ReadZmat()``)."""
+    np.savetxt(path, Z, fmt="%d")
+
+
+def write_tutorial(outdir: str, n: int = 150, p: int = 5000,
+                   seed: int = 7) -> SimData:
+    """Generate and write the full tutorial dataset in every format."""
+    os.makedirs(outdir, exist_ok=True)
+    sim = simulate_dataset(n=n, p=p, seed=seed)
+    write_ascii_geno(sim, os.path.join(outdir, "geno.txt"))
+    write_pheno(sim, os.path.join(outdir, "pheno.txt"))
+    write_map(sim, os.path.join(outdir, "map.txt"))
+    np.savetxt(os.path.join(outdir, "qtl_truth.txt"),
+               np.c_[sim.qtl_idx, sim.qtl_beta], fmt="%.6f")
+    return sim
+
+
+# ---------------------------------------------------------------------------
+# A biobank-sized cohort, generated on the device into a 2-bit store
 # ---------------------------------------------------------------------------
 
 

@@ -177,6 +177,18 @@ def eigh_basis(K: np.ndarray, config: EagleConfig,
     return EigenBasis(d, None, U_dev, device)
 
 
+def _eigh_kernel(K: np.ndarray, config: EagleConfig,
+                 device) -> tuple[np.ndarray, np.ndarray]:
+    """(d, U_host) for callers that need U on the host: host LAPACK up to
+    ``host_eigh_max_n``; above it the f32 eigenvectors computed on
+    ``device`` are pulled back as f64. Prefer :func:`eigh_basis`."""
+    basis = eigh_basis(K, config, device)
+    U = basis.host_f64
+    if U is None:
+        U = basis.device_basis().cpu().numpy().astype(np.float64)
+    return basis.d, U
+
+
 def _impute_column_f64(col_raw: np.ndarray) -> np.ndarray:
     """Recode one raw int8 column to the f64 W column the oracle would
     produce (mean-impute, minus 1) — used for the fixed-effects update so

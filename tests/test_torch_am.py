@@ -75,7 +75,7 @@ def test_matfree_dense_handle_matches_store(pallas_store, port_matfree):
 
 @pytest.fixture(scope="module")
 def tutorial():
-    geno = ee.read_marker(os.path.join(TUT, "geno.txt"))
+    geno = port.read_marker(os.path.join(TUT, "geno.txt"))
     return (geno.geno, port.read_pheno(os.path.join(TUT, "pheno.txt")),
             port.read_map(os.path.join(TUT, "map.txt")))
 
@@ -141,15 +141,15 @@ def test_engines_not_in_this_slice_raise(pallas_store):
     Zmat on the matrix-free engine and the matrix-free am_multi (forced,
     or by "auto" above matfree_min_n)."""
     _, sim = pallas_store
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    with pytest.raises(NotImplementedError, match="multi-device.*item 9"):
         port.am("y", sim.geno, {"y": sim.y}, engine="sharded", device="cpu")
-    with pytest.raises(NotImplementedError, match="Zmat"):
+    with pytest.raises(NotImplementedError, match="Zmat.*item 6"):
         port.am("y", sim.geno, {"y": sim.y}, Zmat=np.eye(NP_),
                 engine="matfree", device="cpu")
-    with pytest.raises(NotImplementedError, match="matrix-free"):
+    with pytest.raises(NotImplementedError, match="matrix-free.*item 7"):
         port.am_multi(["y"], sim.geno, {"y": sim.y}, engine="matfree",
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="matrix-free"):
+    with pytest.raises(NotImplementedError, match="matrix-free.*item 7"):
         port.am_multi(["y"], sim.geno, {"y": sim.y}, device="cpu",
                       config=port.EagleConfig(matfree_min_n=NP_ - 1))
 

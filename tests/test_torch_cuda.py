@@ -1,5 +1,5 @@
 """The port's CUDA kernels against their plain PyTorch versions, and the
-exact engine on the card against the CPU.
+exact engine, ``fpr4am`` and ``summary_am`` on the card against the CPU.
 
 These tests need an NVIDIA GPU (the kernels have no CPU mode) and skip
 without one. They import neither JAX nor the JAX package, so they run on a
@@ -155,3 +155,46 @@ def test_bitwise_repeatable(cuda, kernel, r):
     b = fn(Wp, X, means, 1001)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
+
+
+def _workflow_data(missing_rate: float):
+    from eagleeverything_tpu_torch.data.simulate import simulate_dataset
+    sim = simulate_dataset(n=300, p=2000, n_qtl=3, seed=11,
+                           missing_rate=missing_rate)
+    return sim, {"y": sim.y, "age": sim.covariate}
+
+
+def test_fpr4am_on_card_matches_cpu(cuda):
+    """The same permutations pick the same candidates on the card and on
+    the CPU, and their λ_crits agree: with no missing genotypes MMt is a
+    sum of integers, exact in f32 at this size, and the REML that follows
+    runs on the host in f64."""
+    from eagleeverything_tpu_torch import fpr4am
+    sim, pheno = _workflow_data(0.0)
+    out = {d: fpr4am("y", sim.geno, pheno, fformula="age", numreps=8,
+                     seed=1, device=d) for d in (cuda, "cpu")}
+    np.testing.assert_array_equal(out[cuda]["candidates"],
+                                  out["cpu"]["candidates"])
+    np.testing.assert_allclose(out[cuda]["lambda_crits"],
+                               out["cpu"]["lambda_crits"], rtol=1e-6)
+
+
+def test_summary_matfree_on_card_matches_cpu(cuda):
+    """The matrix-free summary solves by device CG over the packed stack:
+    on the card it launches both kernels and agrees with the CPU's plain
+    versions to the CG's f32 tolerance."""
+    from eagleeverything_tpu_torch import am, summary_am
+    sim, pheno = _workflow_data(0.02)
+    res = am("y", sim.geno, pheno, fformula="age", maxit=6, engine="jax",
+             device="cpu")
+    assert res.indices
+    packed.reset_launches()
+    got = summary_am(res, "y", sim.geno, pheno, fformula="age", quiet=True,
+                     engine="matfree", device=cuda)
+    launches = dict(packed.LAUNCHES)
+    ref = summary_am(res, "y", sim.geno, pheno, fformula="age", quiet=True,
+                     engine="matfree", device="cpu")
+    assert launches["packed_dot"] >= 1 and launches["packed_tdot"] >= 1
+    for f in ("beta", "se", "pvalue"):
+        np.testing.assert_allclose(getattr(got, f), getattr(ref, f),
+                                   rtol=1e-3, err_msg=f)

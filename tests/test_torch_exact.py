@@ -270,7 +270,7 @@ def test_tutorial_matches_golden():
     with open(os.path.join(ROOT, "tests", "fixtures",
                            "tutorial_golden.json")) as f:
         golden = json.load(f)
-    geno = ee.read_marker(os.path.join(TUT, "geno.txt"))
+    geno = port.read_marker(os.path.join(TUT, "geno.txt"))
     res = port.am("y", geno.geno, port.read_pheno(os.path.join(TUT,
                                                                "pheno.txt")),
                   fformula="age + sex",
