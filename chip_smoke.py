@@ -14,20 +14,28 @@ Phases, each fatal when its check fails:
 3. hold each kernel against its plain PyTorch version on the card at ragged
    shapes (SHAPES_RAGGED: n no multiple of 16, p no multiple of anything,
    one shape with a single split of packed_tdot; r ∈ WIDTHS_RAGGED, every
-   column tiling and its edge; 3% missing codes, one all-missing SNP), and
-   packed_dot and packed_tdot each against itself bit for bit;
+   column tiling and its edge, and three 144-wide tiles; 3% missing codes,
+   one all-missing SNP), and packed_dot and packed_tdot each against itself
+   bit for bit;
 4. at the main path's shapes (50 000 individuals × 262 144 SNPs, r ∈
-   WIDTHS_MAIN): check each kernel against its plain version again and time it
-   (CUDA events, median of 10) beside its bound, its plain version and one
-   ``torch.matmul`` on the unpacked f32 W (a yardstick the port never
-   calls);
+   WIDTHS_MAIN, and packed_dot alone at the multi-trait widths
+   WIDTHS_K1_WIDE, bit for bit against itself there): check each kernel
+   against its plain version again and time it (CUDA events, median of 10)
+   beside its bound, its plain version and one ``torch.matmul`` on the
+   unpacked f32 W (a yardstick the port never calls);
 5. a small parity check: ``am(engine="matfree")`` at n = 2000, p = 20 000
-   on the card and on the CPU must select the same SNPs;
+   on the card; its CPU leg, and those of phases 12-14, run in a process
+   of this script's own (``--cpu-legs``, started after phase 6) beside the
+   card phases, and phase 15 holds each pair together;
 6. the matrix-free path as a user runs it: ``am(engine="auto")`` on a
    cohort of 50 000 × p generated on the card from ``--seed`` (50 000 >
    matfree_min_n, so auto takes the matrix-free engine), with the kernels'
    launch counts read around exactly that call; every selected SNP must be
-   a planted QTL;
+   a planted QTL. Before it, the device Lanczos of the REML's [1 y] block
+   (128 steps) is held to the host f64 recurrence over the same card
+   matvec; after it, a second call (maxit 2) traces iteration 1 (a sweep
+   and its refit) with ``torch.profiler``, summarised by its top device
+   ops and host gaps;
 7. exact-engine parity: ``am(engine="jax")`` at n = 2000, p = 20 000 on the
    card and on the CPU must select the same SNPs, extBIC within rtol 1e-6;
 8. the exact engine's path as a user runs it, on BASELINE config 2 (the
@@ -54,8 +62,27 @@ Phases, each fatal when its check fails:
 11. ``fpr4am`` (20 permutations) and the exact ``summary_am`` on phase 7's
    cohort, card against CPU: the same candidates, λ_crit, β, se and p
    within rtol 1e-6;
-12. a summary line per kernel and the kernels' JSON line, then the last
-   line ``{"ok": true, "device": {...}}``.
+12. Zmat on the matrix-free engine: parity at 2000 × 20 000 with 2400
+   records (the card leg);
+   then 50 000 individuals × 65 536 SNPs with 60 000 records, which auto
+   routes to the matrix-free engine (every selection planted), and its
+   matrix-free ``summary_am``;
+13. ``am_multi`` on the matrix-free engine: parity at 2000 × 20 000 (the
+   card leg; each trait against the single-trait matrix-free ``am()`` on
+   the card), then four traits on phase 6's cohort, three carrying a
+   disjoint pair of its planted QTL and one pure noise (each selection
+   planted for its own trait, none for the noise), with the widths
+   packed_dot launched at and its first launch at each width over one tile
+   held against its plain version;
+14. ``fpr4am`` on the matrix-free engine: 20 permutations at 2000 × 20 000
+   (the card leg), then 20 permutations on phase 12's cohort (auto), timed
+   a permutation;
+15. the matrix-free parity cells, card against CPU: the same selections
+   (candidates), extBIC (λ_crit) within rtol 1e-3;
+16. a summary line per kernel and the kernels' JSON line (launches by path,
+   each read around exactly that call: the matrix-free am, summary_am,
+   am with Zmat, am_multi and fpr4am), then the last line
+   ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside a checkout, it exits non-zero with no result line.
 """
@@ -85,9 +112,14 @@ P_KERNELS = 262144   # SNP rows of the kernel timing phase
 # mma_tile_width in packed_common.cuh) with the split count of packed_tdot
 # that goes with each
 WIDTHS_MAIN = (2, 8, 16, 32, 64, 137)
+# packed_dot alone at the multi-trait widths: matfree_stat_rows_multi puts
+# 4 traits of 1 + 8 + 128 columns (548) in one launch, up to its cap of
+# MULTI_STAT_COLS (640) — several 144-wide column tiles on grid.y
+WIDTHS_K1_WIDE = (548, 640)
 # and the edges of every column tiling: one column past a tile (9, 17, 33,
-# 65, 145: 145 takes two 144-wide tiles of packed_tdot) and a full one (144)
-WIDTHS_RAGGED = (1, 2, 8, 9, 16, 17, 32, 33, 64, 65, 137, 144, 145)
+# 65, 145: 145 takes two 144-wide tiles) and a full one (144), and 289,
+# one column past two whole tiles (three tiles on grid.y)
+WIDTHS_RAGGED = (1, 2, 8, 9, 16, 17, 32, 33, 64, 65, 137, 144, 145, 289)
 # (n, p) of the ragged phase: n no multiple of 16 with a short last
 # genotype tile, p no multiple of the 32-row k-step; p = 201 < 256 rows
 # gives packed_tdot a single split (no reduce launch)
@@ -106,6 +138,8 @@ FP32_FLOPS_PER_S = 67e12
 # (tests/test_torch_packed.py::test_bf16_split_numerics emulates both),
 # so 1e-4 passes every correct kernel and fails any wrong term
 TOL = 1e-4
+# the run's time limit, seconds: the CPU legs are waited for up to it
+LIMIT_S = 1140
 KERNELS = {
     "packed_dot": {
         "source": "eagleeverything_tpu_torch/ops/csrc/packed_dot.cu",
@@ -288,15 +322,18 @@ class OpTimer:
 class LaunchRecorder:
     """For the length of a ``with`` block, wraps packed_dot, packed_tdot and
     kernel_matvec of ``packed`` (the engine and kernel_matvec itself look
-    them up through the module at call time) so that the first call at each
-    width keeps a copy of its operand and its result. It launches nothing
-    of its own, so the launch counts stay the path's."""
+    them up through the module at call time): it counts the calls at each
+    width, and the first call at each width that ``keep`` selects keeps a
+    copy of its operand and its result. It launches nothing of its own,
+    so the launch counts stay the path's."""
 
     NAMES = ("packed_dot", "packed_tdot", "kernel_matvec")
 
-    def __init__(self, packed):
+    def __init__(self, packed, keep=lambda name, r: True):
         self.packed = packed
+        self.keep = keep    # which (name, r) to keep a copy of
         self.kept = {}      # (name, r) → (Wp, means, n, operand, result)
+        self.widths = {name: {} for name in self.NAMES}   # r → calls
         self._saved = {}
 
     def __enter__(self):
@@ -308,9 +345,10 @@ class LaunchRecorder:
     def _wrap(self, name, fn):
         def call(Wp, X, means, n):
             out = fn(Wp, X, means, n)
-            if (name, X.shape[1]) not in self.kept:
-                self.kept[(name, X.shape[1])] = (Wp, means, n, X.clone(),
-                                                 out.clone())
+            r = X.shape[1]
+            self.widths[name][r] = self.widths[name].get(r, 0) + 1
+            if (name, r) not in self.kept and self.keep(name, r):
+                self.kept[(name, r)] = (Wp, means, n, X.clone(), out.clone())
             return out
         return call
 
@@ -318,6 +356,110 @@ class LaunchRecorder:
         for name, fn in self._saved.items():
             setattr(self.packed, name, fn)
         return False
+
+
+class IterationTrace:
+    """For the length of a ``with`` block, traces one forward-selection
+    iteration of the matrix-free scan with ``torch.profiler`` (CPU and CUDA
+    activity): the profiler starts when the sweep of iteration ``it``
+    begins (bigscan.score_sweep_matfree, looked up through the module at
+    call time) and stops when the refit after it (the next
+    reml_maximize_matfree with a delta hint) returns. The Chrome trace is
+    written to ``path``; ``wall_s`` is the host wall of the traced window,
+    which carries the profiler's own cost."""
+
+    def __init__(self, torch, bigscan, it: int, path: str):
+        from torch.profiler import ProfilerActivity, profile
+        self.torch, self.bigscan, self.it, self.path = torch, bigscan, it, path
+        self.prof = profile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA])
+        self.sweeps = 0
+        self.active = False
+        self.done = False
+        self.wall_s = None
+
+    def _start(self):
+        self.torch.cuda.synchronize()
+        self.prof.start()
+        self.active = True
+        self._t0 = time.perf_counter()
+
+    def _stop(self):
+        self.torch.cuda.synchronize()
+        self.wall_s = time.perf_counter() - self._t0
+        self.prof.stop()
+        self.active, self.done = False, True
+        self.prof.export_chrome_trace(self.path)
+
+    def __enter__(self):
+        self._sweep = self.bigscan.score_sweep_matfree
+        self._reml = self.bigscan.reml_maximize_matfree
+
+        def sweep(*a, **k):
+            if self.sweeps == self.it and not self.done:
+                self._start()
+            self.sweeps += 1
+            return self._sweep(*a, **k)
+
+        def reml(*a, **k):
+            out = self._reml(*a, **k)
+            if self.active and k.get("delta_hint") is not None:
+                self._stop()
+            return out
+
+        self.bigscan.score_sweep_matfree = sweep
+        self.bigscan.reml_maximize_matfree = reml
+        return self
+
+    def __exit__(self, *exc):
+        self.bigscan.score_sweep_matfree = self._sweep
+        self.bigscan.reml_maximize_matfree = self._reml
+        if self.active:
+            self._stop()
+        return False
+
+
+def trace_summary(path: str, wall_s: float, top: int = 8) -> dict:
+    """Device time by kernel name and the host gaps of a Chrome trace:
+    the union of the device's kernel, copy and set intervals against the
+    traced window, and the idle stretches between them."""
+    with open(path) as f:
+        events = json.load(f)
+    events = events.get("traceEvents", events) if isinstance(events,
+                                                             dict) else events
+    dev = [e for e in events if e.get("ph") == "X"
+           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not dev:
+        return {"device_events": 0}
+    by_name: dict = {}
+    for e in dev:
+        k = e["name"][:70]
+        cnt, us = by_name.get(k, (0, 0.0))
+        by_name[k] = (cnt + 1, us + float(e["dur"]))
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                   for e in dev)
+    busy, gaps = 0.0, []
+    lo, hi = spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy += hi - lo
+            gaps.append((a - hi, hi - spans[0][0]))
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    busy += hi - lo
+    window_us = wall_s * 1e6
+    big = sorted((g for g in gaps if g[0] > 1000.0), reverse=True)
+    return {
+        "device_events": len(dev),
+        "window_ms": window_us / 1e3,
+        "device_busy_ms": busy / 1e3,
+        "device_idle_share": 1.0 - busy / window_us,
+        "top_ops": sorted(((k, c, us / 1e3) for k, (c, us) in by_name.items()),
+                          key=lambda t: -t[2])[:top],
+        "gaps_over_1ms": len(big),
+        "gaps_over_1ms_total_ms": sum(g for g, _ in big) / 1e3,
+        "largest_gaps_ms_at_ms": [(g / 1e3, at / 1e3) for g, at in big[:5]]}
 
 
 def exact_op_targets(torch, kernels) -> dict:
@@ -458,7 +600,9 @@ def ragged_phase(torch, packed, dev, seed: int) -> dict:
 
 
 def timing_phase(torch, packed, dev, n: int, p: int, seed: int) -> dict:
-    phase(f"4. kernels at the main path's shapes: n={n}, p={p} "
+    phase(f"4. kernels at the main path's shapes: n={n}, p={p}, r in "
+          f"{WIDTHS_MAIN}, packed_dot also at r in {WIDTHS_K1_WIDE} (bit "
+          "for bit against itself there) "
           "(CUDA events: kernels and torch.matmul median of 10, plain "
           "versions median of 3; bound from the H100 SXM data sheet: "
           "3.35 TB/s HBM against the function's 2·p·n·r FLOPs at 989 "
@@ -481,17 +625,25 @@ def timing_phase(torch, packed, dev, n: int, p: int, seed: int) -> dict:
     }
     res = {name: {} for name in ops}
     outs = {}
+    # packed_dot alone at the wide widths (only its input is made there)
+    names = {r: (tuple(ops) if r in widths else ("packed_dot",))
+             for r in widths + WIDTHS_K1_WIDE}
     inputs = {r: (torch.randn((n, r), generator=gen, device=dev),
-                  torch.randn((p, r), generator=gen, device=dev))
-              for r in widths}
-    for r in widths:
+                  torch.randn((p, r), generator=gen, device=dev)
+                  if r in widths else None)
+              for r in names}
+    for r, these in names.items():
         X = inputs[r]
-        for name, (kern, plain) in ops.items():
+        for name in these:
+            kern, plain = ops[name]
             k_out, k_ms = timed(torch, lambda: kern(X), 10, 2)
             p_out, p_ms = timed(torch, lambda: plain(X), 3, 0)
             err, rel = rel_err(torch, k_out, p_out)
             check(rel <= TOL, f"{name} disagrees with its plain version at "
                   f"n={n} p={p} r={r}: rel {rel:.3e} > {TOL:g}")
+            if r not in widths:
+                check(torch.equal(k_out, kern(X)),
+                      f"{name} not bitwise repeatable at r={r}")
             b_ms, b_by, b_unit = bound(name, n, p, r, nw)
             res[name][r] = {"max_abs_err": err, "rel_err": rel, "ms": k_ms,
                             "plain_ms": p_ms, "bound_ms": b_ms,
@@ -511,8 +663,9 @@ def timing_phase(torch, packed, dev, n: int, p: int, seed: int) -> dict:
            "packed_tdot": lambda X: torch.matmul(W.T, X[1]),
            "kernel_matvec": lambda X: torch.matmul(W.T,
                                                    torch.matmul(W, X[0]))}
-    for r in widths:
-        for name, fn in lib.items():
+    for r, these in names.items():
+        for name in these:
+            fn = lib[name]
             l_out, l_ms = timed(torch, lambda: fn(inputs[r]), 10, 1)
             err, rel = rel_err(torch, l_out, outs[name, r])
             check(rel <= TOL, f"torch.matmul and {name} disagree at r={r}: "
@@ -537,42 +690,198 @@ def read_log(path: str) -> list[dict]:
         return [json.loads(ln) for ln in f if ln.strip()]
 
 
-def parity_phase(torch, ep, tmp: str, seed: int, dev) -> None:
+def parity_phase(torch, ep, tmp: str, seed: int, dev) -> tuple:
+    """The card leg of the matrix-free parity cell; its CPU leg runs in
+    the CPU-legs process and phase 15 holds the two together. Returns
+    (cohort, card result)."""
     from eagleeverything_tpu_torch.data.simulate import simulate_cohort
     n, p = 2000, 20000
-    phase(f"5. parity: am(engine='matfree') at n={n}, p={p} on cuda and cpu")
+    phase(f"5. parity: am(engine='matfree') at n={n}, p={p} on cuda (the "
+          "cpu leg runs beside the card phases, compared in phase 15)")
     c = simulate_cohort(os.path.join(tmp, "parity"), n=n, p=p, seed=seed,
                         device=dev)
-    h = ep.GenoHandle(n=n, p=p, source="parity", store_dir=c.store_dir)
+    h = ep.GenoHandle(n=c.n, p=c.p, source="parity", store_dir=c.store_dir)
+    t0 = time.perf_counter()
+    res = ep.am("y", h, {"y": c.y}, maxit=3, engine="matfree")
+    print(f"cuda: indices {res.indices}  extBIC "
+          f"{[round(v, 4) for v in res.extbic_path]}  "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    check(len(res.indices) >= 1, "the parity scan selected nothing")
+    return c, {"indices": res.indices, "extbic_path": res.extbic_path}
+
+
+class CpuLegs:
+    """The CPU legs of the matrix-free parity cells, run by this script in
+    a process of its own (``--cpu-legs SPEC OUT``) beside the card phases,
+    so that their hundreds of seconds of plain-version work overlap the
+    card's. ``add`` records a job with its arrays, ``start`` launches the
+    process, ``results`` waits for it; leaving the ``with`` block stops it
+    if it still runs."""
+
+    THREADS = "6"           # of the host's cores; the card phases keep two
+
+    def __init__(self, tmp: str):
+        self.tmp, self.jobs, self.proc = tmp, {}, None
+
+    def add(self, key: str, kind: str, cohort, arrays: dict, **kw) -> None:
+        data = os.path.join(self.tmp, f"leg_{key}.npz")
+        np.savez(data, **arrays)
+        self.jobs[key] = dict(kind=kind, store=cohort.store_dir, n=cohort.n,
+                              p=cohort.p, data=data, **kw)
+
+    def start(self) -> None:
+        spec = os.path.join(self.tmp, "legs.json")
+        with open(spec, "w") as f:
+            json.dump(self.jobs, f)
+        self.out = os.path.join(self.tmp, "legs_out.json")
+        self.log_path = os.path.join(self.tmp, "legs.log")
+        env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS=self.THREADS,
+                   MKL_NUM_THREADS=self.THREADS,
+                   OPENBLAS_NUM_THREADS=self.THREADS)
+        self._log = open(self.log_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--cpu-legs", spec,
+             self.out], cwd=ROOT, env=env, stdout=self._log,
+            stderr=subprocess.STDOUT)
+        self.t0 = time.perf_counter()
+        print(f"CPU legs started ({', '.join(self.jobs)}; "
+              f"{self.THREADS} threads, pid {self.proc.pid})", flush=True)
+
+    def results(self, timeout: float) -> tuple[dict, float]:
+        try:
+            rc = self.proc.wait(timeout=max(timeout, 1.0))
+        except subprocess.TimeoutExpired:
+            raise SmokeFailure(f"the CPU legs did not finish in {timeout:.0f}"
+                               " s") from None
+        with open(self.log_path) as f:
+            log = f.read()
+        check(rc == 0, f"the CPU legs failed (rc {rc}): {log[-2000:]}")
+        with open(self.out) as f:
+            return json.load(f), time.perf_counter() - self.t0
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        if self.proc is not None:
+            if self.proc.poll() is None:
+                self.proc.kill()
+            self.proc.wait()
+            self._log.close()
+        return False
+
+
+def incidence(z_idx: np.ndarray, n: int) -> np.ndarray:
+    """The dense f64 0/1 Zmat of a record → individual index, as
+    ``read_zmat`` returns it; at biobank n nearly all of it is zero pages
+    that are never written."""
+    Z = np.zeros((len(z_idx), n))
+    Z[np.arange(len(z_idx)), z_idx] = 1.0
+    return Z
+
+
+def cpu_legs(spec_path: str, out_path: str) -> int:
+    """Run each job of a CpuLegs spec on the CPU and write the results."""
+    import eagleeverything_tpu_torch as ep
+    with open(spec_path) as f:
+        jobs = json.load(f)
     out = {}
-    for d in ("cuda", "cpu"):
+    for key, job in jobs.items():
+        d = np.load(job["data"])
+        h = ep.GenoHandle(n=job["n"], p=job["p"], source=key,
+                          store_dir=job["store"])
         t0 = time.perf_counter()
-        out[d] = ep.am("y", h, {"y": c.y}, maxit=3, engine="matfree",
-                       device=d)
-        print(f"{d}: indices {out[d].indices}  extBIC "
-              f"{[round(v, 4) for v in out[d].extbic_path]}  "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
-    check(out["cuda"].indices == out["cpu"].indices,
-          "cuda and cpu selections differ")
-    check(len(out["cuda"].indices) >= 1, "the parity scan selected nothing")
-    check(np.allclose(out["cuda"].extbic_path, out["cpu"].extbic_path,
-                      rtol=1e-3, atol=0.0),
-          "cuda and cpu extBIC paths differ beyond rtol 1e-3")
+        if job["kind"] == "am":
+            Z = (incidence(d["z_idx"], job["n"]) if "z_idx" in d.files
+                 else None)
+            r = ep.am("y", h, {"y": d["y"]}, Zmat=Z, maxit=3,
+                      engine="matfree", device="cpu")
+            res = {"indices": r.indices, "extbic_path": r.extbic_path}
+        elif job["kind"] == "am_multi":
+            rs = ep.am_multi(job["traits"], h,
+                             {t: d[t] for t in job["traits"]}, maxit=3,
+                             engine="matfree", device="cpu")
+            res = {t: {"indices": r.indices, "extbic_path": r.extbic_path}
+                   for t, r in rs.items()}
+        else:
+            cal = ep.fpr4am("y", h, {"y": d["y"]}, numreps=job["numreps"],
+                            seed=1, engine="matfree", device="cpu")
+            res = {"candidates": cal["candidates"].tolist(),
+                   "lambda_crits": cal["lambda_crits"].tolist(),
+                   "lambda": cal["lambda"]}
+        out[key] = {"result": res, "s": time.perf_counter() - t0}
+        print(f"{key}: {out[key]['s']:.1f} s", flush=True)
+    with open(out_path + ".tmp", "w") as f:
+        json.dump(out, f)
+    os.replace(out_path + ".tmp", out_path)
+    return 0
+
+
+def lanczos_check(torch, ep, bigscan, engine_torch, c, dev) -> dict:
+    """The device Lanczos at the main path's shapes: the REML's own call
+    (the block [1 y], solve_m = 128 steps, full reorthogonalisation) on the
+    cohort's stack, against the host f64 recurrence over the same card
+    matvec (tests/test_packed_stack.py:107's bounds: z_norm at rtol 1e-6,
+    the leading 8 α and β at rtol/atol 1e-3). Each is timed: the device
+    one between CUDA events, the host one by the host clock."""
+    backend = engine_torch.TiledScan(
+        engine_torch.StoreTileSource(c.store_dir), ep.EagleConfig(), dev)
+    ctx = bigscan.make_context(backend, c.n)
+    B = np.column_stack([np.ones(c.n), c.y])
+    m = ctx.solve_m
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    ad, bd, zd, basis = ctx.device_lanczos(B, m, True)
+    b.record()
+    b.synchronize()
+    dev_ms = a.elapsed_time(b)
+    basis_bytes = basis.numel() * basis.element_size()
+    del basis
+    t0 = time.perf_counter()
+    ah, bh, zh, _ = bigscan._lanczos(ctx.kernel_matvec, B, m, reorth=True)
+    host_ms = (time.perf_counter() - t0) * 1e3
+
+    def gap(x, y):
+        return float(np.max(np.abs(x - y) / (1e-3 + 1e-3 * np.abs(y))))
+
+    out = {"m": m, "device_ms": dev_ms, "host_ms": host_ms,
+           "z_norm_rel": float(np.max(np.abs(zd[:2] - zh) / zh)),
+           "alpha_gap": gap(ad[:8, :2], ah[:8, :2]),
+           "beta_gap": gap(bd[:8, :2], bh[:8, :2]),
+           "basis_gb": basis_bytes / 1e9}
+    print(f"device Lanczos, [1 y] ({c.n} x 2, padded to 8), m = {m}, "
+          f"reorthogonalised: {dev_ms:.1f} ms on the card (basis "
+          f"{out['basis_gb']:.2f} GB), host f64 recurrence over the same "
+          f"matvec {host_ms:.1f} ms; z_norm rel {out['z_norm_rel']:.2e} "
+          f"(limit 1e-6), leading 8 alpha / beta at "
+          f"{out['alpha_gap']:.3f} / {out['beta_gap']:.3f} of rtol/atol "
+          f"1e-3", flush=True)
+    check(out["z_norm_rel"] <= 1e-6, "device Lanczos z_norm off")
+    check(out["alpha_gap"] <= 1.0 and out["beta_gap"] <= 1.0,
+          "device Lanczos coefficients differ from the host recurrence's")
+    del backend, ctx
+    torch.cuda.empty_cache()
+    return out
 
 
 def main_path_phase(torch, ep, packed, tmp: str, n: int, p: int, seed: int,
                     dev) -> dict:
     from eagleeverything_tpu_torch.data.simulate import simulate_cohort
+    from eagleeverything_tpu_torch.models import bigscan, engine_torch
     phase(f"6. matrix-free path: am(engine='auto') on a generated cohort of "
-          f"{n} x {p} (seed {seed}, 8 planted QTL)")
+          f"{n} x {p} (seed {seed}, 8 planted QTL), after its device "
+          "Lanczos is held to the host recurrence; one iteration traced")
     t0 = time.perf_counter()
     c = simulate_cohort(os.path.join(tmp, "cohort"), n=n, p=p, n_qtl=8,
                         seed=seed, device=dev)
     print(f"cohort written in {time.perf_counter() - t0:.1f} s; planted QTL "
           f"{c.qtl_idx.tolist()}", flush=True)
+    lz = lanczos_check(torch, ep, bigscan, engine_torch, c, dev)
     stack_gb = p * packed.words_per_row(n) * 4 / 1e9
     log = os.path.join(tmp, "scan.jsonl")
-    handle = ep.GenoHandle(n=n, p=p, source="cohort", store_dir=c.store_dir)
+    handle = ep.GenoHandle(n=c.n, p=c.p, source="cohort", store_dir=c.store_dir)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     packed.reset_launches()
@@ -605,8 +914,310 @@ def main_path_phase(torch, ep, packed, tmp: str, n: int, p: int, seed: int,
     for name in KERNELS:
         check(launches[name] >= 1,
               f"{name} was never launched on the main path")
+    # the trace in a call of its own (maxit 2, iteration 1 traced), so that
+    # the profiler's start-up and cost stay out of the walls above
+    with IterationTrace(torch, bigscan, 1,
+                        os.path.join(tmp, "iteration_trace.json")) as tr:
+        ep.am("y", handle, {"y": c.y}, maxit=2, engine="auto")
+    trace = {"device_events": 0}
+    if tr.done:
+        trace = trace_summary(tr.path, tr.wall_s)
+    if trace["device_events"]:
+        print(f"traced iteration 1 (sweep + refit, under the profiler, "
+              "in a second am() call with maxit 2): "
+              f"window {trace['window_ms']:.1f} ms, device busy "
+              f"{trace['device_busy_ms']:.1f} ms, idle share "
+              f"{trace['device_idle_share']:.1%}; {trace['gaps_over_1ms']} "
+              f"host gaps over 1 ms, {trace['gaps_over_1ms_total_ms']:.1f} "
+              "ms in all; largest (ms, at ms) "
+              + ", ".join(f"{g:.1f} at {at:.0f}"
+                          for g, at in trace["largest_gaps_ms_at_ms"]))
+        for name, cnt, ms in trace["top_ops"]:
+            print(f"  device op {name:70s} {cnt:6d} calls {ms:10.1f} ms")
+    else:
+        print("the profiler recorded no device events in the traced "
+              "iteration (traced: " + str(tr.done) + ")", flush=True)
     return {"launches": launches, "wall_s": wall, "peak_bytes": peak,
-            "indices": res.indices}
+            "indices": res.indices, "cohort": c, "lanczos": lz,
+            "trace": trace, "phases": scan_phases(events)}
+
+
+def rel_gap(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300),
+                        initial=0.0))
+
+
+def records(c, extra: int, seed: int):
+    """A repeated-measures design over cohort ``c``: the record →
+    individual index (every individual once, ``extra`` of them drawn
+    again) and a record-level trait, the individual's trait plus record
+    noise (sd 0.3)."""
+    rng = np.random.default_rng(seed)
+    z_idx = np.concatenate([np.arange(c.n), rng.integers(0, c.n, extra)])
+    return z_idx, c.y[z_idx] + 0.3 * rng.standard_normal(len(z_idx))
+
+
+def start_cpu_legs(legs: CpuLegs, ep, tmp: str, mf_parity, seed: int,
+                   dev) -> dict:
+    """Make the data of the matrix-free parity cells — phase 5's cohort and
+    four traits over it (phase 13), and a Zmat cohort of 2000 × 20 000 with
+    2400 records (phase 12) — and start their CPU legs."""
+    from eagleeverything_tpu_torch.data.simulate import simulate_cohort
+    zc = simulate_cohort(os.path.join(tmp, "zmat_parity"), n=2000, p=20000,
+                         seed=seed + 2, device=dev)
+    z_idx, y_rec = records(zc, 400, seed)
+    pheno, pairs = trait_pairs(ep, mf_parity, seed)
+    legs.add("am", "am", mf_parity, {"y": mf_parity.y})
+    legs.add("zmat", "am", zc, {"y": y_rec, "z_idx": z_idx})
+    legs.add("am_multi", "am_multi", mf_parity, pheno, traits=list(pheno))
+    legs.add("fpr4am", "fpr4am", mf_parity, {"y": mf_parity.y}, numreps=20)
+    legs.start()
+    return {"zmat_cohort": zc, "z_idx": z_idx, "y_rec": y_rec,
+            "pheno": pheno, "pairs": pairs}
+
+
+def run_counted(torch, packed, fn, recorder=None):
+    """(result, host wall s, launches) of fn(), the launch counts set to 0
+    just before and read just after it."""
+    torch.cuda.synchronize()
+    packed.reset_launches()
+    t0 = time.perf_counter()
+    with recorder if recorder is not None else contextlib.nullcontext():
+        out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, dict(packed.LAUNCHES)
+
+
+def zmat_phase(torch, ep, packed, tmp: str, prep: dict, seed: int,
+               dev) -> dict:
+    """Zmat on the matrix-free engine: the card leg of the parity cell
+    (2000 × 20 000 with 2400 records), then 50 000 individuals × 65 536
+    SNPs with 60 000 records, which auto routes to the matrix-free engine,
+    and its matrix-free summary."""
+    from eagleeverything_tpu_torch.data.simulate import simulate_cohort
+    phase("12. Zmat on the matrix-free engine: parity at 2000 x 20 000 with "
+          "2400 records on cuda (the cpu leg: phase 15), then 50 000 x "
+          "65 536 with 60 000 records (engine='auto') and its matrix-free "
+          "summary_am")
+    c = prep["zmat_cohort"]
+    h = ep.GenoHandle(n=c.n, p=c.p, source="zmat_parity",
+                      store_dir=c.store_dir)
+    t0 = time.perf_counter()
+    res = ep.am("y", h, {"y": prep["y_rec"]},
+                Zmat=incidence(prep["z_idx"], c.n), maxit=3,
+                engine="matfree")
+    print(f"cuda: indices {res.indices} (planted {c.qtl_idx.tolist()})  "
+          f"extBIC {[round(v, 4) for v in res.extbic_path]}  "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    check(len(res.indices) >= 1, "the Zmat parity scan selected nothing")
+    card = {"indices": res.indices, "extbic_path": res.extbic_path}
+
+    n, p = N, 65536
+    t0 = time.perf_counter()
+    c = simulate_cohort(os.path.join(tmp, "zmat"), n=n, p=p, n_qtl=8,
+                        seed=seed + 3, device=dev)
+    z_idx, y = records(c, 10000, seed)
+    Z = incidence(z_idx, c.n)
+    print(f"cohort {n} x {p} and its {Z.shape[0]} records made in "
+          f"{time.perf_counter() - t0:.1f} s (the dense Zmat {Z.nbytes / 1e9:.1f}"
+          f" GB, nearly all of it untouched zero pages); planted QTL "
+          f"{c.qtl_idx.tolist()}", flush=True)
+    h = ep.GenoHandle(n=c.n, p=c.p, source="zmat", store_dir=c.store_dir)
+    log = os.path.join(tmp, "zmat.jsonl")
+    res, wall, launches = run_counted(torch, packed, lambda: ep.am(
+        "y", h, {"y": y}, Zmat=Z, maxit=3, engine="auto", log_jsonl=log))
+    phases = scan_phases(read_log(log))
+    print(f"am(Zmat, engine='auto'): {wall:.1f} s; phases "
+          + ", ".join(f"{k} " + " / ".join(f"{w:.2f}" for w in v)
+                      for k, v in phases.items())
+          + f" s; launches {launches}; selected {res.indices}; extBIC "
+          f"{res.extbic_path}", flush=True)
+    check(len(res.indices) >= 1, "the full-width Zmat scan selected nothing")
+    check(set(res.indices) <= set(int(q) for q in c.qtl_idx),
+          f"Zmat: selected SNPs {res.indices} are not all planted QTL")
+    check(all(math.isfinite(v) for v in res.extbic_path),
+          "non-finite extBIC on the Zmat scan")
+    for k in KERNELS:
+        check(launches[k] >= 1, f"{k} was never launched by am() with Zmat")
+    summ, s_wall, s_launches = run_counted(torch, packed, lambda: (
+        ep.summary_am(res, "y", h, {"y": y}, Zmat=Z, engine="matfree",
+                      quiet=True)))
+    print(f"summary_am(Zmat, engine='matfree'): {s_wall:.2f} s; beta "
+          f"{summ.beta}, se {summ.se}, p {summ.pvalue}; launches "
+          f"{s_launches}", flush=True)
+    check(bool(np.all(np.isfinite(summ.beta)) and np.all(summ.se > 0)),
+          "the Zmat summary has non-finite beta or se")
+    check(bool(np.all(summ.pvalue < 0.05)), "a selected planted marker has "
+          f"p >= 0.05 in the Zmat summary: {summ.pvalue}")
+    del Z
+    return {"cohort": c, "launches": launches, "wall_s": wall,
+            "phases": phases, "summary_s": s_wall, "card": card}
+
+
+def trait_pairs(ep, c, seed: int) -> tuple[dict, list]:
+    """Four traits over cohort ``c``: three each carry a disjoint pair of
+    its planted QTL (h² 0.3 a trait), one is pure noise."""
+    store = ep.GenotypeStore.open(c.store_dir)
+    rng = np.random.default_rng(seed)
+    pheno, pairs = {}, []
+    for t in range(3):
+        pair = [int(q) for q in c.qtl_idx[2 * t : 2 * t + 2]]
+        g = sum(b * (store.column(j) - store.column(j).mean())
+                for b, j in zip(rng.choice((-1.0, 1.0), 2), pair))
+        g = g / g.std() * np.sqrt(0.3)
+        pheno[f"t{t}"] = g + rng.normal(0.0, np.sqrt(0.7), c.n)
+        pairs.append(pair)
+    pheno["noise"] = rng.standard_normal(c.n)
+    return pheno, pairs + [[]]
+
+
+def multi_phase(torch, ep, packed, tmp: str, parity_cohort, prep: dict,
+                main_cohort, seed: int) -> dict:
+    """am_multi on the matrix-free engine (BASELINE config 5 at biobank n):
+    the card leg of the parity cell at 2000 × 20 000, each trait held to
+    the single-trait matrix-free am() on the card, then four traits at the
+    main path's 50 000 × p (auto), with the widths packed_dot launched at."""
+    phase("13. am_multi on the matrix-free engine: parity at 2000 x 20 000 "
+          "on cuda (against single-trait am; the cpu leg: phase 15), then "
+          f"R = 4 traits at {main_cohort.n} x {main_cohort.p} "
+          "(engine='auto')")
+    c = parity_cohort
+    h = ep.GenoHandle(n=c.n, p=c.p, source="parity", store_dir=c.store_dir)
+    pheno = prep["pheno"]
+    traits = list(pheno)
+    t0 = time.perf_counter()
+    res = ep.am_multi(traits, h, pheno, maxit=3, engine="matfree")
+    print("cuda: " + "; ".join(f"{t} {r.indices}" for t, r in res.items())
+          + f"  {time.perf_counter() - t0:.1f} s", flush=True)
+    single = {t: ep.am(t, h, pheno, maxit=3, engine="matfree")
+              for t in traits}
+    gaps = {t: rel_gap(res[t].extbic_path, single[t].extbic_path)
+            for t in traits}
+    print("largest relative extBIC gaps, am_multi vs single-trait am on the "
+          "card: " + ", ".join(f"{t} {g:.2e}" for t, g in gaps.items()),
+          flush=True)
+    for t, pair in zip(traits, prep["pairs"]):
+        check(res[t].indices == single[t].indices,
+              f"am_multi {t}: differs from single-trait am()")
+        check(gaps[t] <= 1e-3, f"am_multi {t}: extBIC beyond rtol 1e-3 of "
+              "single-trait am()")
+        check(set(res[t].indices) <= set(pair),
+              f"am_multi {t}: selected {res[t].indices}, not its own QTL")
+    check(any(res[t].indices for t in traits),
+          "the am_multi parity scan selected nothing")
+    card = {t: {"indices": r.indices, "extbic_path": r.extbic_path}
+            for t, r in res.items()}
+
+    c = main_cohort
+    h = ep.GenoHandle(n=c.n, p=c.p, source="cohort", store_dir=c.store_dir)
+    pheno, pairs = trait_pairs(ep, c, seed)
+    traits = list(pheno)
+    log = os.path.join(tmp, "multi.jsonl")
+    rec = LaunchRecorder(packed, keep=lambda name, r: (
+        name == "packed_dot" and r > 144))
+    res, wall, launches = run_counted(torch, packed, lambda: ep.am_multi(
+        traits, h, pheno, maxit=3, engine="auto", log_jsonl=log), rec)
+    phases = scan_phases(read_log(log))
+    k1_widths = dict(sorted(rec.widths["packed_dot"].items()))
+    print(f"am_multi(R = {len(traits)}, engine='auto'): {wall:.1f} s; "
+          "phases " + ", ".join(f"{k} " + " / ".join(f"{w:.2f}" for w in v)
+                                for k, v in phases.items())
+          + f" s; launches {launches}", flush=True)
+    print(f"packed_dot launched at widths (r: launches) {k1_widths}")
+    for t, pair in zip(traits, pairs):
+        print(f"  {t}: selected {res[t].indices} (its planted pair {pair}); "
+              f"extBIC {res[t].extbic_path}")
+        check(set(res[t].indices) <= set(pair),
+              f"am_multi {t}: selected {res[t].indices}, not its own QTL")
+        check(all(math.isfinite(v) for v in res[t].extbic_path),
+              f"am_multi {t}: non-finite extBIC")
+    check(res["noise"].indices == [], "the noise trait selected SNPs")
+    check(all(res[t].indices for t in traits[:3]),
+          "a trait with planted QTL selected nothing")
+    check(max(k1_widths) > 144, "packed_dot never ran wider than one tile")
+    for k in KERNELS:
+        check(launches[k] >= 1, f"{k} was never launched by am_multi")
+    wide = kept_checks(torch, packed, rec.kept, "am_multi")
+    return {"launches": launches, "wall_s": wall, "phases": phases,
+            "k1_widths": k1_widths, "wide_rel_err": wide.get("packed_dot"),
+            "card": card}
+
+
+def fpr_matfree_phase(torch, ep, packed, parity_cohort,
+                      zmat_cohort) -> dict:
+    """fpr4am on the matrix-free engine: the card leg of the parity cell
+    (20 permutations at 2000 × 20 000), then 20 permutations (BASELINE's
+    100 cut) at 50 000 × 65 536 (p cut from 262 144), which auto routes
+    to it."""
+    reps = 20
+    phase(f"14. fpr4am on the matrix-free engine: parity at 2000 x 20 000 "
+          f"({reps} permutations, on cuda; the cpu leg: phase 15), then "
+          f"{reps} permutations at {zmat_cohort.n} x {zmat_cohort.p} "
+          "(engine='auto')")
+    c = parity_cohort
+    h = ep.GenoHandle(n=c.n, p=c.p, source="parity", store_dir=c.store_dir)
+    t0 = time.perf_counter()
+    cal = ep.fpr4am("y", h, {"y": c.y}, numreps=reps, seed=1,
+                    engine="matfree")
+    print(f"cuda: candidates {cal['candidates'].tolist()}  lambda* "
+          f"{cal['lambda']:.6f}  {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    card = {"candidates": cal["candidates"].tolist(),
+            "lambda_crits": cal["lambda_crits"].tolist(),
+            "lambda": cal["lambda"]}
+
+    c = zmat_cohort
+    h = ep.GenoHandle(n=c.n, p=c.p, source="zmat", store_dir=c.store_dir)
+    out, wall, launches = run_counted(torch, packed, lambda: ep.fpr4am(
+        "y", h, {"y": c.y}, numreps=reps, seed=1))
+    crits = np.asarray(out["lambda_crits"])
+    print(f"fpr4am({reps} permutations, engine='auto'): {wall:.1f} s, "
+          f"{wall / reps:.2f} s a permutation; lambda* {out['lambda']:.4f}, "
+          f"lambda_crit range [{crits.min():.3f}, {crits.max():.3f}]; "
+          f"launches {launches}", flush=True)
+    check(math.isfinite(out["lambda"]) and bool(np.all(np.isfinite(crits))),
+          "non-finite lambda from the matrix-free fpr4am")
+    for k in KERNELS:
+        check(launches[k] >= 1, f"{k} was never launched by fpr4am")
+    return {"launches": launches, "wall_s": wall, "per_perm_s": wall / reps,
+            "card": card}
+
+
+def legs_phase(legs: CpuLegs, cards: dict, timeout: float) -> dict:
+    """Phase 15: wait for the CPU legs and hold each matrix-free parity
+    cell's card leg to its CPU leg — the same selections (candidates),
+    extBIC (λ_crit) within rtol 1e-3."""
+    phase("15. matrix-free parity cells, cuda against cpu (the cpu legs ran "
+          "in a process of their own beside phases 7-14)")
+    cpu, wall = legs.results(timeout)
+    print("cpu legs: " + ", ".join(f"{k} {v['s']:.1f} s"
+                                   for k, v in cpu.items())
+          + f"; {wall:.1f} s from their start", flush=True)
+    gaps = {}
+
+    def same_scan(key, a, b):
+        print(f"  {key}: cuda {a['indices']}, cpu {b['indices']}; extBIC "
+              f"gap {rel_gap(a['extbic_path'], b['extbic_path']):.2e}")
+        check(a["indices"] == b["indices"],
+              f"{key}: cuda and cpu selections differ")
+        gaps[key] = rel_gap(a["extbic_path"], b["extbic_path"])
+        check(gaps[key] <= 1e-3, f"{key}: extBIC gap {gaps[key]:.3e}")
+
+    same_scan("am", cards["am"], cpu["am"]["result"])
+    same_scan("zmat", cards["zmat"], cpu["zmat"]["result"])
+    for t, a in cards["am_multi"].items():
+        same_scan(f"am_multi {t}", a, cpu["am_multi"]["result"][t])
+    a, b = cards["fpr4am"], cpu["fpr4am"]["result"]
+    gaps["fpr4am"] = rel_gap(a["lambda_crits"], b["lambda_crits"])
+    print(f"  fpr4am: candidates equal {a['candidates'] == b['candidates']}; "
+          f"lambda_crit gap {gaps['fpr4am']:.2e}, lambda* {a['lambda']:.6f} "
+          f"/ {b['lambda']:.6f}", flush=True)
+    check(a["candidates"] == b["candidates"],
+          "fpr4am: candidates differ between cuda and cpu")
+    check(gaps["fpr4am"] <= 1e-3, f"fpr4am: lambda_crit gap "
+          f"{gaps['fpr4am']:.3e}")
+    return {"gaps": gaps, "cpu_s": {k: v["s"] for k, v in cpu.items()}}
 
 
 def exact_parity_phase(torch, ep, tmp: str, seed: int, dev) -> dict:
@@ -784,6 +1395,21 @@ def same_shards(a, b) -> bool:
                            shallow=False) for k in range(a.n_shards))
 
 
+def kept_checks(torch, packed, kept: dict, what: str) -> dict:
+    """Hold each launch a LaunchRecorder kept against the plain version on
+    the same operand, at TOL. Returns {kernel: worst rel err}."""
+    worst = {}
+    for (name, r), (Wp, means, n, X, got) in sorted(kept.items()):
+        ref = getattr(packed, f"{name}_plain")(Wp, X, means, n)
+        err, rel = rel_err(torch, got, ref)
+        worst[name] = max(worst.get(name, 0.0), rel)
+        print(f"  {name:14s} n={n} p={Wp.shape[0]} r={r:3d} (as {what} "
+              f"launched it): max abs err {err:.3e}, rel {rel:.3e}")
+        check(rel <= TOL, f"{name} disagrees with its plain version on "
+              f"{what}'s operand at r={r}: rel {rel:.3e}")
+    return worst
+
+
 def summary_kernel_checks(torch, packed, kept: dict, delta: float) -> dict:
     """Hold each launch that the matrix-free summary kept (the first at each
     width: the s0 probe's and the CG's) against the plain version on the
@@ -791,16 +1417,7 @@ def summary_kernel_checks(torch, packed, kept: dict, delta: float) -> dict:
     kernel carries in the first CG step: where δ dominates, the summary's
     β and se barely depend on K, and only these checks hold the kernels.
     Returns {kernel: worst rel err}."""
-    worst = {}
-    for (name, r), (Wp, means, n, X, got) in sorted(kept.items()):
-        ref = getattr(packed, f"{name}_plain")(Wp, X, means, n)
-        err, rel = rel_err(torch, got, ref)
-        worst[name] = max(worst.get(name, 0.0), rel)
-        print(f"  {name:14s} n={n} p={Wp.shape[0]} r={r:3d} (as the "
-              f"matrix-free summary launched it): max abs err {err:.3e}, "
-              f"rel {rel:.3e}")
-        check(rel <= TOL, f"{name} disagrees with its plain version on the "
-              f"matrix-free summary's operand at r={r}: rel {rel:.3e}")
+    worst = kept_checks(torch, packed, kept, "the matrix-free summary")
     check(set(worst) == set(LaunchRecorder.NAMES),
           f"the matrix-free summary called only {sorted(worst)}")
     widths = sorted(r for name, r in kept if name == "kernel_matvec")
@@ -1035,10 +1652,14 @@ def run(args) -> None:
     timing = timing_phase(torch, packed, dev, N, P_KERNELS, args.seed)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"),
-                                     prefix="smoke_") as tmp:
-        parity_phase(torch, ep, tmp, args.seed, dev)
+                                     prefix="smoke_") as tmp, \
+            CpuLegs(tmp) as legs:
+        mf_parity, am_card = parity_phase(torch, ep, tmp, args.seed, dev)
         main = main_path_phase(torch, ep, packed, tmp, N, args.p,
                                args.seed, dev)
+        # the CPU legs of the matrix-free parity cells start once the main
+        # path's walls are taken, and overlap phases 7-14
+        prep = start_cpu_legs(legs, ep, tmp, mf_parity, args.seed, dev)
         parity = exact_parity_phase(torch, ep, tmp, args.seed, dev)
         cfg2 = config2_phase(torch, ep, packed, kernels, engine_torch, tmp,
                              args.seed, dev)
@@ -1047,28 +1668,49 @@ def run(args) -> None:
         flow = workflow_phase(torch, ep, packed, engine_torch, tmp, cfg2,
                               args.seed)
         fpr_parity_phase(torch, ep, parity)
+        zmat = zmat_phase(torch, ep, packed, tmp, prep, args.seed, dev)
+        multi = multi_phase(torch, ep, packed, tmp, mf_parity, prep,
+                            main["cohort"], args.seed)
+        fpr_mf = fpr_matfree_phase(torch, ep, packed, mf_parity,
+                                   zmat["cohort"])
+        legs_phase(legs, {"am": am_card, "zmat": zmat["card"],
+                          "am_multi": multi["card"],
+                          "fpr4am": fpr_mf["card"]},
+                   LIMIT_S - (time.perf_counter() - t_start))
 
-    phase("12. kernels")
+    phase("16. kernels")
+    by_path = {"am_matfree": main["launches"],
+               "summary_am_matfree": flow["summary_matfree_launches"],
+               "am_matfree_zmat": zmat["launches"],
+               "am_multi_matfree": multi["launches"],
+               "fpr4am_matfree": fpr_mf["launches"]}
+    print("matrix-free walls: am() " + f"{main['wall_s']:.1f} s (phases "
+          + ", ".join(f"{k} " + " / ".join(f"{w:.2f}" for w in v)
+                      for k, v in main["phases"].items())
+          + f"), am(Zmat) {zmat['wall_s']:.1f} s, am_multi (R = 4) "
+          f"{multi['wall_s']:.1f} s, fpr4am {fpr_mf['per_perm_s']:.2f} s a "
+          f"permutation; device Lanczos m = {main['lanczos']['m']} "
+          f"{main['lanczos']['device_ms']:.1f} ms vs host "
+          f"{main['lanczos']['host_ms']:.1f} ms")
     entries = []
     head = 64
     for name, meta in KERNELS.items():
         by_r = timing[name]
         m = by_r[head]
         print(f"{name}: checked (ragged worst rel err {ragged[name]:.2e}), "
-              f"launches on the main path {main['launches'][name]}, in the "
-              "matrix-free summary_am "
-              f"{flow['summary_matfree_launches'][name]} (rel err there "
+              "launches by path "
+              + ", ".join(f"{k} {v[name]}" for k, v in by_path.items())
+              + " (rel err in the matrix-free summary_am "
               f"{flow['summary_matfree_rel_err'][name]:.2e}), "
               + ", ".join(f"r={r}: {v['ms']:.3f} ms"
                           for r, v in by_r.items()))
+        for path, counts in by_path.items():
+            check(counts[name] >= 1, f"{name} has no launch on {path}")
         entries.append({
             "name": name, "route": "cuda", "source": meta["source"],
             "replaces": meta["replaces"],
             "launches": main["launches"][name],
-            "launches_by_path": {
-                "am_matfree": main["launches"][name],
-                "summary_am_matfree":
-                    flow["summary_matfree_launches"][name]},
+            "launches_by_path": {k: v[name] for k, v in by_path.items()},
             "summary_am_matfree_rel_err":
                 flow["summary_matfree_rel_err"][name],
             "max_abs_err": max(v["max_abs_err"] for v in by_r.values()),
@@ -1078,6 +1720,10 @@ def run(args) -> None:
             "library_ms": m["library_ms"],
             "shape": {"n": N, "p": P_KERNELS, "r": head},
             "by_r": {str(r): v for r, v in by_r.items()}})
+        if name == "packed_dot":
+            entries[-1]["am_multi_wide_rel_err"] = multi["wide_rel_err"]
+            entries[-1]["am_multi_widths"] = {
+                str(r): c for r, c in multi["k1_widths"].items()}
     kv = timing["kernel_matvec"]
     print("kernel_matvec (packed_dot then packed_tdot): "
           + ", ".join(f"r={r}: {v['ms']:.3f} ms" for r, v in kv.items()))
@@ -1094,6 +1740,8 @@ def main() -> int:
                     help="SNPs of the main-path cohort (BASELINE config 3 "
                          "has 1 000 000)")
     ap.add_argument("--seed", type=int, default=7)
+    ap.add_argument("--cpu-legs", nargs=2, metavar=("SPEC", "OUT"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     try:
         import torch
@@ -1111,6 +1759,9 @@ def main() -> int:
         print(f"FAIL: the port is not importable beside this script ({e})",
               flush=True)
         return 1
+    if args.cpu_legs:
+        # the CPU-legs process a run starts (CpuLegs): CPU work only
+        return cpu_legs(*args.cpu_legs)
     try:
         run(args)
     except SmokeFailure as e:

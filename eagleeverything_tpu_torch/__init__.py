@@ -18,9 +18,9 @@ Public API (the JAX package's, the reference's exported R surface):
   matrix-free engine over the device-resident 2-bit packed stack (the
   default above it; the hand-written kernels) or on the dense oracle
                                                   (reference: ``AM()``)
-- :func:`am_multi`     — several traits in one pass, exact engine
-- :func:`fpr4am`       — extBIC λ calibration by trait permutation, exact
-  engine                                          (reference: ``FPR4AM()``)
+- :func:`am_multi`     — several traits in one pass, on either engine
+- :func:`fpr4am`       — extBIC λ calibration by trait permutation, on
+  either engine                                   (reference: ``FPR4AM()``)
 - :func:`summary_am`   — Wald tests for the selected markers, exact or
   matrix-free                                     (reference: ``SummaryAM()``)
 - :func:`plot_am`      — Manhattan plot (matplotlib, or a standalone .html)

@@ -59,8 +59,9 @@ def am(
       map: optional marker map; selected markers are reported with
         name/chr/pos when given.
       Zmat: optional incidence matrix linking trait records to genotyped
-        individuals (reference: ``ReadZmat``); the oracle and the exact
-        engine take it, the matrix-free engine not yet.
+        individuals (reference: ``ReadZmat``). Every engine takes it; on
+        the matrix-free engine a one-hot Zmat keeps the device Krylov
+        path, any other one solves on the host over the kernel matvec.
       maxit: maximum forward-selection steps (reference default 40).
       fixit: force exactly ``maxit`` selections, ignoring extBIC.
       lam: extBIC sparsity weight λ/gamma (calibrate with :func:`fpr4am`).
@@ -107,17 +108,12 @@ def am(
         # biobank n-scale mode: K never materialized — CG/SLQ REML and the
         # two-stage probe/exact score sweep (docs/design_biobank_scale.md)
         # over the device-resident packed stack
-        if prep.Z is not None:
-            raise NotImplementedError(
-                "Zmat on the matrix-free engine is not in the PyTorch port "
-                "yet (ROADMAP.md queue 1 item 6); use engine='jax' or "
-                "'oracle'")
         from eagleeverything_tpu_torch.models import bigscan, engine_torch
         src = engine_torch._make_source(prep.handle, prep.keep_individuals)
         backend = engine_torch.TiledScan(src, config, dev)
         res = bigscan.forward_select_matfree(
             prep.y, prep.X0, backend, maxit=maxit, fixit=fixit,
-            lam_ebic=lam, quiet=quiet, log_jsonl=log_jsonl,
+            lam_ebic=lam, quiet=quiet, Z=prep.Z, log_jsonl=log_jsonl,
             probes=config.matfree_probes,
             lanczos_m=config.matfree_lanczos_m,
             diag_probes=config.matfree_diag_probes,
@@ -175,13 +171,15 @@ def am_multi(
     all traits (union NA rule) so the shared kernel stays valid. Returns
     {trait_name: AMResult}.
 
-    ``engine``: "auto" or "jax" (the exact eigenbasis engine). The
-    matrix-free multi-trait scan ("matfree", and "auto" above
-    ``config.matfree_min_n`` individuals) is not in this package yet and
-    raises NotImplementedError. ``ckpt_dir``, ``resume`` and ``log_jsonl``
-    are accepted as the JAX package accepts them; the exact engine runs
-    unchanged under them, as there (the matrix-free engine will honour
-    them). ``device`` as in :func:`am`.
+    ``engine``: "auto" (the exact eigenbasis engine; "matfree" above
+    ``config.matfree_min_n`` individuals, as :func:`am` routes), "jax"
+    (force the exact engine) or "matfree" (force the lockstep matrix-free
+    scan: the resident stack, one union Krylov basis and one batched
+    sweep an iteration for every trait,
+    ``bigscan.forward_select_matfree_multi``). ``ckpt_dir``, ``resume``
+    and ``log_jsonl`` are honoured by the matrix-free engine and accepted,
+    unused, by the exact one, as in the JAX package. ``device`` as in
+    :func:`am`.
     """
     from eagleeverything_tpu_torch.api.design import build_design, na_rows
     from eagleeverything_tpu_torch.models import engine_torch
@@ -215,20 +213,36 @@ def am_multi(
 
     if engine == "auto":
         engine = "matfree" if handle.n > config.matfree_min_n else "jax"
+    keep_idx = keep if len(keep) != n_rec else None
     if engine == "matfree":
-        raise NotImplementedError(
-            "am_multi on the matrix-free engine is not in the PyTorch port "
-            "yet (ROADMAP.md queue 1 item 7); up to "
-            f"matfree_min_n={config.matfree_min_n} individuals use "
-            "engine='jax'")
-    if engine != "jax":
+        # biobank n-scale multi-trait: the shared resident stack and ONE
+        # union Krylov basis an iteration for every trait (BASELINE
+        # config 5 at config 3's n)
+        from eagleeverything_tpu_torch.models import bigscan
+        backend = engine_torch.TiledScan(
+            engine_torch._make_source(handle, keep_idx), config, dev)
+        results = bigscan.forward_select_matfree_multi(
+            ys_full[:, keep], X_full[keep], backend,
+            maxit=maxit, fixit=fixit, lam_ebic=lam, quiet=quiet,
+            probes=config.matfree_probes,
+            lanczos_m=config.matfree_lanczos_m,
+            diag_probes=config.matfree_diag_probes,
+            exact_topk=config.matfree_exact_topk,
+            solve_m=config.matfree_solve_m,
+            solve_m_refit=config.matfree_solve_m_refit,
+            cache_max_bytes=int(config.matfree_cache_gb * 1e9),
+            column_f64=backend.column_f64, trait_names=list(traits),
+            log_jsonl=log_jsonl, ckpt_dir=ckpt_dir, resume=resume,
+        )
+    elif engine == "jax":
+        results = engine_torch.forward_select_multi(
+            ys_full[:, keep], X_full[keep], handle,
+            maxit=maxit, fixit=fixit, lam_ebic=lam, quiet=quiet,
+            config=config, keep_records=keep_idx,
+            trait_names=list(traits), device=dev,
+        )
+    else:
         raise ValueError(f"unknown engine {engine!r}")
-    results = engine_torch.forward_select_multi(
-        ys_full[:, keep], X_full[keep], handle,
-        maxit=maxit, fixit=fixit, lam_ebic=lam, quiet=quiet, config=config,
-        keep_records=keep if len(keep) != n_rec else None,
-        trait_names=list(traits), device=dev,
-    )
     out = {}
     for res in results:
         res.dropped_records = drop

@@ -70,7 +70,11 @@ def prepare_inputs(
     Z = Zmat
     keep_individuals = None
     if Z is not None:
-        Z = np.asarray(Z, dtype=np.float64)[keep]
+        # a copy only when records are dropped: at biobank n a dense Z is
+        # tens of GB, nearly all of it zero pages never written
+        Z = np.asarray(Z, dtype=np.float64)
+        if len(keep) != n_rec:
+            Z = Z[keep]
         if Z.shape[1] != handle.n:
             raise ValueError(
                 f"Zmat has {Z.shape[1]} columns but genotypes have "

@@ -54,27 +54,16 @@ def fpr4am(
     ``candidates`` (the SNP each permutation's sweep picked), and
     ``falseposrate``/``numreps`` bookkeeping.
 
-    ``engine``: "auto" or "eig" takes the shared-eigenbasis device-batched
-    path. The matrix-free calibration ("matfree", and "auto" above
-    ``config.matfree_min_n`` individuals) is not in this package yet and
-    raises NotImplementedError. ``device``: where MMt and the sweeps run,
-    CUDA unless the caller passes ``"cpu"``.
+    ``engine``: "auto" takes the shared-eigenbasis device-batched path and
+    switches to "matfree" above ``config.matfree_min_n`` individuals (like
+    :func:`am`); "eig"/"matfree" force a path. ``device``: where MMt, the
+    kernel matvecs and the sweeps run, CUDA unless the caller passes
+    ``"cpu"``.
     """
     dev = resolve_device(device)
     prep = prepare_inputs(trait, geno, pheno, fformula, Zmat)
     y, X0, Z = prep.y, prep.X0, prep.Z
     n = y.shape[0]
-
-    if engine == "auto":
-        engine = "matfree" if prep.handle.n > config.matfree_min_n else "eig"
-    if engine == "matfree":
-        raise NotImplementedError(
-            "fpr4am on the matrix-free engine is not in the PyTorch port yet "
-            "(ROADMAP.md queue 1 item 7); up to "
-            f"matfree_min_n={config.matfree_min_n} individuals use "
-            "engine='eig'")
-    if engine != "eig":
-        raise ValueError(f"unknown fpr4am engine {engine!r}")
 
     src = engine_torch._make_source(prep.handle, prep.keep_individuals)
     backend = engine_torch.TiledScan(src, config, dev)
@@ -83,6 +72,17 @@ def fpr4am(
         raise ValueError(
             f"FPR calibration needs at least 2 SNPs (got p={p}): the "
             "extBIC penalty difference log C(p,1) is zero at p=1")
+
+    if engine == "auto":
+        engine = "matfree" if prep.handle.n > config.matfree_min_n else "eig"
+    if engine == "matfree":
+        lam_crits, cands = _matfree_lam_crits(prep, src, backend, numreps,
+                                              seed, quiet)
+        out = _calibrate(lam_crits, falseposrate, numreps, quiet)
+        out["candidates"] = cands
+        return out
+    if engine != "eig":
+        raise ValueError(f"unknown fpr4am engine {engine!r}")
 
     K_eff = engine_torch.normalized_kernel(backend.compute_K(), Z)
 
@@ -142,7 +142,8 @@ def fpr4am(
 
 def _calibrate(lam_crits: np.ndarray, falseposrate: float, numreps: int,
                quiet: bool) -> dict:
-    """λ* = (1-α) quantile of the λ_crit sample; FPR(λ*) = P(λ_crit>λ*) ≈ α."""
+    """λ* = (1-α) quantile of the λ_crit sample; FPR(λ*) = P(λ_crit>λ*) ≈ α.
+    Shared tail of both calibration engines."""
     lam_star = max(float(np.quantile(lam_crits, 1.0 - falseposrate)), 0.0)
     if not quiet:
         print(f"[fpr4am] lambda* = {lam_star:.4f} for target FPR {falseposrate}")
@@ -152,3 +153,135 @@ def _calibrate(lam_crits: np.ndarray, falseposrate: float, numreps: int,
         "falseposrate": falseposrate,
         "numreps": numreps,
     }
+
+
+def _matfree_lam_crits(prep, src, backend, numreps: int, seed: int,
+                       quiet: bool) -> tuple[np.ndarray, np.ndarray]:
+    """FPR calibration at biobank n: the kernel is never materialized.
+    Returns (λ_crit, candidate SNP) a permutation.
+
+    Same λ_crit algebra as the eigenbasis path, but LL₀/LL₁ come from
+    matrix-free REML (Krylov solves + cached SLQ logdet, models/bigscan)
+    and the per-permutation sweep is the two-stage probe/exact score
+    sweep. The SLQ probe set and Hutchinson scale s0 are shared across
+    all permutations, and every store-bound stage batches across a chunk
+    of permutations:
+
+    - null-model solves ride ONE shift-invariant Lanczos pass on the
+      block [X | y_π1 … y_πR] (the Krylov space of H(δ)=K+δI is
+      δ-independent, so one pass serves every permutation × every δ-grid
+      point × the golden refinement);
+    - the score sweeps ride ONE ``score_sweep_matfree_multi`` call (one
+      stat-rows stack pass + multi-shift CG rescores for the whole
+      chunk);
+    - the candidate REML refits share ONE union Krylov basis over the
+      per-rep [X w_cand y] blocks (the am_multi refit pattern).
+
+    Chunk size is capped by the basis cache budget. Zmat designs fall
+    back to per-rep serial sweeps (the batched sweep is Z-free)."""
+    import scipy.optimize as _opt
+
+    from eagleeverything_tpu_torch.models import bigscan
+    from eagleeverything_tpu_torch.models.bigscan import ShiftedKrylov
+
+    y, X0, Z = prep.y, prep.X0, prep.Z
+    n = y.shape[0]
+    p = src.p
+    ctx = bigscan.make_context(backend, n, Z=Z)
+    column_f64 = backend.column_f64
+
+    rng = np.random.default_rng(seed)
+    log_choose_p1 = math.log(p)
+    lam_crits = np.empty(numreps)
+    cands_all = np.empty(numreps, dtype=np.int64)
+
+    Xi, _ = reml_core.independent_cols(np.asarray(X0, np.float64))
+    q = Xi.shape[1]
+    # chunk permutations so the (m, n, q+R) basis fits the cache budget
+    per_col = ShiftedKrylov.cache_bytes(n, 1, ctx.solve_m)
+    chunk = max(1, min(numreps,
+                       int(ctx.cache_max_bytes / max(per_col, 1)) - q))
+    hint = None
+    for c0 in range(0, numreps, chunk):
+        R = min(chunk, numreps - c0)
+        Y = np.column_stack([rng.permutation(y) for _ in range(R)])
+        sk = ShiftedKrylov(ctx.kernel_matvec, np.column_stack([Xi, Y]),
+                           m=ctx.solve_m, reorth=True,
+                           device_lanczos=ctx.device_lanczos)
+
+        def cols(rep: int) -> list[int]:
+            return list(range(q)) + [q + rep]
+
+        def ll_of(rep: int, d: float, _sk=sk, _Y=Y) -> float:
+            return bigscan._ll_from_solution(
+                _Y[:, rep], Xi, _sk.solve(d)[:, cols(rep)],
+                ctx.logdet(d))[0]
+
+        # shared coarse δ grid: one cached solve per grid point serves
+        # every permutation in the chunk
+        llim, ulim, ngrids = -6.0, 8.0, 24
+        if hint is not None and hint > 0:
+            c = math.log(hint)
+            llim, ulim, ngrids = c - 2.0, c + 2.0, 8
+        grid = np.exp(np.linspace(llim, ulim, ngrids + 1))
+        grid_lls = np.empty((len(grid), R))
+        for gi, d in enumerate(grid):
+            Sol = sk.solve(float(d))
+            ld = ctx.logdet(float(d))
+            for rep in range(R):
+                grid_lls[gi, rep] = bigscan._ll_from_solution(
+                    Y[:, rep], Xi, Sol[:, cols(rep)], ld)[0]
+
+        fits0: list = []
+        for rep in range(R):
+            gi = int(np.argmax(grid_lls[:, rep]))
+            lo = grid[max(gi - 1, 0)]
+            hi = grid[min(gi + 1, ngrids)]
+            res = _opt.minimize_scalar(
+                lambda ld: -ll_of(rep, math.exp(ld)),
+                bounds=(math.log(lo), math.log(hi)), method="bounded",
+                options={"xatol": 1e-3})
+            d0 = float(math.exp(res.x))
+            ll0, yPy = bigscan._ll_from_solution(
+                Y[:, rep], Xi, sk.solve(d0)[:, cols(rep)], ctx.logdet(d0))
+            s2g = yPy / (n - q)
+            fits0.append(reml_core.RemlResult(delta=d0, loglik=ll0,
+                                              sigma2_g=s2g,
+                                              sigma2_e=d0 * s2g))
+            hint = d0
+
+        # the chunk's sweeps: ONE batched pass (Z-free designs); the
+        # chunk basis warm-starts every rep's [X y] solve at its δ̂
+        if Z is None:
+            sol0s = [sk.solve(fits0[rep].delta)[:, cols(rep)]
+                     for rep in range(R)]
+            sweeps = bigscan.score_sweep_matfree_multi(
+                ctx, backend, [Y[:, rep] for rep in range(R)],
+                [X0] * R, fits0, column_f64=column_f64, sol0s=sol0s)
+            cands = [cand for _, cand, _ in sweeps]
+        else:
+            cands = [bigscan.score_sweep_matfree(
+                ctx, backend, Y[:, rep], X0, fits0[rep],
+                column_f64=column_f64, Z=Z)[1] for rep in range(R)]
+
+        # the chunk's candidate refits: one union Krylov basis over the
+        # per-rep [X w_cand y] blocks (am_multi's refit pattern)
+        X1s = [np.hstack([X0, ctx.z_apply(Z, column_f64(c))[:, None]])
+               for c in cands]
+        m_refit = min(ctx.solve_m, max(ctx.solve_m_refit, 16))
+        uk = bigscan._UnionKrylov(ctx, [
+            np.column_stack([reml_core.independent_cols(X1s[rep])[0],
+                             Y[:, rep]]) for rep in range(R)], m_refit)
+        for rep in range(R):
+            r_glob = c0 + rep
+            fit1 = bigscan.reml_maximize_matfree(
+                ctx, Y[:, rep], X1s[rep], delta_hint=fits0[rep].delta,
+                solver=uk.solver(rep))
+            lam_crits[r_glob] = (
+                2.0 * (fit1.loglik - fits0[rep].loglik) - math.log(n)
+            ) / (2.0 * log_choose_p1)
+            cands_all[r_glob] = cands[rep]
+            if not quiet:
+                print(f"[fpr4am:matfree] rep={r_glob} cand={cands[rep]} "
+                      f"lambda_crit={lam_crits[r_glob]:.4f}")
+    return lam_crits, cands_all

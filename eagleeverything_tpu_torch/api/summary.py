@@ -41,10 +41,10 @@ def summary_am(
 
     ``engine``: "exact" (dense n×n kernel + fresh REML refit), "matfree"
     (biobank n: V⁻¹-products by device CG against the kernel matvec,
-    reusing the scan's own (δ, σ²) final-model fit), or "auto" (matfree
-    above ``config.matfree_min_n``). Zmat on "matfree" is not in this
-    package yet and raises NotImplementedError. ``device``: where K or the
-    kernel matvecs are computed, CUDA unless the caller passes ``"cpu"``."""
+    reusing the scan's own (δ, σ²) final-model fit; a Zmat solves in
+    record space, on the device when it is one-hot), or "auto" (matfree
+    above ``config.matfree_min_n``). ``device``: where K or the kernel
+    matvecs are computed, CUDA unless the caller passes ``"cpu"``."""
     dev = resolve_device(device)
     prep = prepare_inputs(trait, geno, pheno, fformula, Zmat)
     y, X0, Z = prep.y, prep.X0, prep.Z
@@ -54,26 +54,23 @@ def summary_am(
         engine = "matfree" if src.n > config.matfree_min_n else "exact"
     if engine not in ("exact", "matfree"):
         raise ValueError(f"unknown summary engine {engine!r}")
-    if engine == "matfree" and Z is not None:
-        raise NotImplementedError(
-            "Zmat on the matrix-free summary is not in the PyTorch port yet "
-            "(ROADMAP.md queue 1 item 6); use engine='exact'")
     backend = engine_torch.TiledScan(src, config, dev)
 
     idx = list(res.indices)
     Wcols = np.column_stack(
         [backend.column_f64(j) for j in idx]
     ) if idx else np.zeros((src.n, 0))
-    if Z is not None:
-        Wcols = Z @ Wcols
 
     if engine == "matfree":
         from eagleeverything_tpu_torch.models import bigscan
-        ctx = bigscan.make_context(backend, y.shape[0])
+        ctx = bigscan.make_context(backend, y.shape[0], Z=Z)
+        Wcols = ctx.z_apply(Z, Wcols)
         out = bigscan.gls_wald_stats_matfree(
             ctx.solve_block, y, X0, Wcols, idx,
             res.delta, res.sigma2_g, res.sigma2_e)
     else:
+        if Z is not None:
+            Wcols = Z @ Wcols
         K = engine_torch.normalized_kernel(backend.compute_K(), Z)
         lam_s, eta2_s, _ = reml_core.spectral_inputs(
             y, np.hstack([X0, Wcols]), K)

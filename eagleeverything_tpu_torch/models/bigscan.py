@@ -7,6 +7,8 @@ SNP-sharded genotype tiles (reference hot-loop machinery re-aimed at a
 new call site; no new distributed primitives).
 
 Pieces:
+- :func:`blocked_cg`       — H⁻¹·B for a block of RHS (H = K/s0 + δI), the
+  host solver of designs the device hooks do not cover
 - :func:`slq_logdet`      — log|H| by Hutchinson + Lanczos quadrature
   (common random probes across all δ so likelihood DIFFERENCES are smooth)
 - :func:`reml_maximize_matfree` — the 1-D δ profile with the matrix-free
@@ -15,19 +17,23 @@ Pieces:
   X-projection term; diag(WᵀH⁻¹W) by Hutchinson probes through H^(-1/2)
   (Lanczos square-root matvec), with optional exact CG rescoring of the
   top candidates so the argmax decision is exact
-- :func:`forward_select_matfree` — the AM loop on these pieces
+- :func:`forward_select_matfree` — the AM loop on these pieces, and
+  :func:`forward_select_matfree_multi` — R traits in lockstep on shared
+  store passes (:func:`score_sweep_matfree_multi`, :class:`_UnionKrylov`)
 
 Accuracy contract: stochastic terms (log|H|, probe diagonals) use common
 random numbers across candidate models within an iteration, so the
 extBIC accept/stop comparisons and the argmax see smooth differences;
 tests validate selection equality against the exact engine at moderate n.
 
-Every Lanczos recurrence here runs on the host in float64 over the
-backend's kernel matvec (engine_torch.TiledScan: two hand-written kernel
-launches on the device per matvec); every CG solve H⁻¹·B keeps its block
-state on the device (``MatfreeContext.device_solve``, the backend's
-``device_cg``). The multi-trait lockstep scan and the record-level Zmat
-design are not part of this package yet.
+Where the context carries the backend's device hooks (:func:`make_context`:
+no Zmat, or a one-hot Zmat as a record → individual index), every CG solve
+keeps its block state on the device (engine_torch.TiledScan.device_cg) and
+every Lanczos recurrence runs there too, with its basis resident
+(TiledScan.device_lanczos); each matvec is two hand-written kernel
+launches. A Zmat that is not one-hot wraps the kernel matvec on the host
+and takes the host f64 recurrences (:func:`blocked_cg`, :func:`_lanczos`),
+whose matvec still launches the kernels.
 """
 
 from __future__ import annotations
@@ -48,6 +54,57 @@ Matvec = Callable[[np.ndarray], np.ndarray]  # (n, r) -> (n, r)
 # ---------------------------------------------------------------------------
 # Krylov primitives
 # ---------------------------------------------------------------------------
+
+
+def blocked_cg(
+    matvec_h: Matvec, B: np.ndarray, tol: float = 1e-8, maxiter: int = 400,
+    x0: Optional[np.ndarray] = None,
+) -> np.ndarray:
+    """Solve H·X = B column-blocked (classic CG, per-column scalars).
+
+    One ``matvec_h`` per iteration serves every RHS column; columns that
+    have converged are frozen (their α/β forced to 0) so late stragglers
+    don't perturb finished solutions. ``x0`` warm-starts the iteration
+    (convergence is still measured against ‖B‖, so the result meets the
+    same relative tolerance as a cold solve).
+    """
+    B = np.asarray(B, dtype=np.float64)
+    if x0 is not None:
+        X = np.array(x0, dtype=np.float64, copy=True)
+        R = B - matvec_h(X)
+    else:
+        X = np.zeros_like(B)
+        R = B.copy()
+    P = R.copy()
+    rs = np.sum(R * R, axis=0)
+    b_norm2 = np.maximum(np.sum(B * B, axis=0), 1e-300)
+    # stall guard: with an f32 device matvec underneath, the reachable
+    # residual floors near f32 noise — once no active column has
+    # QUARTERED its norm² within 10 iterations, further matvecs (each a
+    # full store pass) buy nothing
+    floor = rs.copy()
+    since_progress = 0
+    for _ in range(maxiter):
+        active = rs > tol * tol * b_norm2
+        if not active.any():
+            break
+        HP = matvec_h(P)
+        pHp = np.sum(P * HP, axis=0)
+        alpha = np.where(active & (pHp > 0), rs / np.maximum(pHp, 1e-300), 0.0)
+        X += P * alpha[None, :]
+        R -= HP * alpha[None, :]
+        rs_new = np.sum(R * R, axis=0)
+        beta = np.where(active, rs_new / np.maximum(rs, 1e-300), 0.0)
+        P = R + P * beta[None, :]
+        rs = rs_new
+        if np.all(rs >= 0.25 * floor):
+            since_progress += 1
+            if since_progress >= 10:
+                break
+        else:
+            since_progress = 0
+        floor = np.minimum(floor, rs)
+    return X
 
 
 def _lanczos(matvec_h: Matvec, Z: np.ndarray, m: int, reorth: bool = False,
@@ -113,14 +170,28 @@ class ShiftedKrylov:
     """
 
     def __init__(self, matvec_k: Matvec, Z: np.ndarray, m: int,
-                 reorth: bool = False, need_basis: bool = True):
+                 reorth: bool = False, device_lanczos=None,
+                 need_basis: bool = True):
         Z = np.asarray(Z, dtype=np.float64)
         n, r = Z.shape
         m = min(m, n)
         self.n, self.r, self.m = n, r, m
-        alphas, betas, z_norm, basis = _lanczos(
-            matvec_k, Z, m, reorth=reorth, need_basis=need_basis)
-        self.V = basis if need_basis else None            # (m, n, r)
+        self._V_dev = None
+        if device_lanczos is not None:
+            # the backend's device Lanczos: padded-width coefficients and
+            # an (r_pad, m, n) f32 basis that stays on the device
+            alphas, betas, z_norm, V_dev = device_lanczos(Z, m, reorth)
+            # logdet-only users (need_basis=False) drop the basis at once —
+            # quadrature needs only w/Q0/z_norm
+            self._V_dev = V_dev if need_basis else None
+            m = alphas.shape[0]
+            self.m = m
+            alphas, betas, z_norm = alphas[:, :r], betas[:, :r], z_norm[:r]
+            self.V = None
+        else:
+            alphas, betas, z_norm, basis = _lanczos(
+                matvec_k, Z, m, reorth=reorth, need_basis=need_basis)
+            self.V = basis if need_basis else None        # (m, n, r)
         self.z_norm = z_norm
         self.w = np.empty((m, r))                         # Ritz values of K
         self.Q = np.empty((r, m, m))                      # eigvecs of T per col
@@ -131,7 +202,7 @@ class ShiftedKrylov:
             w, Q = np.linalg.eigh(T)
             self.w[:, j] = w
             self.Q[j] = Q
-        # the kernel is PSD by construction (K = W·Wᵀ/s0);
+        # the kernel is PSD by construction (K = W·Wᵀ/s0, or Z·K·Zᵀ);
         # negative Ritz values are pure f32 Lanczos noise, and 1/(w+δ)
         # at small δ turns them into huge negative solve components that
         # corrupt the REML profile's small-δ end (measured at 50k×1M:
@@ -144,14 +215,29 @@ class ShiftedKrylov:
     def cache_bytes(n: int, r: int, m: int) -> int:
         return min(m, n) * n * r * 8
 
-    def _apply(self, fvals: np.ndarray) -> np.ndarray:
-        """f(K+δI)·Z from eigen-coordinate values fvals (m, r)."""
-        c = np.einsum("jkl,lj->kj", self.Q, fvals * self.Q0)
-        c *= self.z_norm[None, :]
-        return np.einsum("mnr,mr->nr", self.V, c)
+    def _apply(self, fvals: np.ndarray,
+               sl: slice = slice(None)) -> np.ndarray:
+        """f(K+δI)·Z from eigen-coordinate values fvals (m, width) for
+        the column slice ``sl`` (all columns by default). Slice-aware so
+        a union-block caller (_UnionKrylov) pays O(width), not O(r_total),
+        per trait per δ. A device basis is contracted on the device, one
+        batched f32 product over the slice's columns, and the (n, width)
+        result comes back as f64."""
+        c = np.einsum("jkl,lj->kj", self.Q[sl], fvals * self.Q0[:, sl])
+        c *= self.z_norm[sl][None, :]
+        if self._V_dev is not None:
+            import torch
+            s0, s1, _ = sl.indices(self.r)   # resolve vs the TRUE width
+            V = self._V_dev[s0:s1]                         # (w, m, n)
+            cd = torch.as_tensor(np.ascontiguousarray(c.T[:, :, None]),
+                                 dtype=torch.float32, device=V.device)
+            out = torch.bmm(V.transpose(1, 2), cd)[:, :, 0]   # (w, n)
+            return out.T.cpu().numpy().astype(np.float64)
+        return np.einsum("mnr,mr->nr", self.V[:, :, sl], c)
 
-    def solve(self, delta: float) -> np.ndarray:
-        return self._apply(1.0 / np.maximum(self.w + delta, 1e-300))
+    def solve(self, delta: float, sl: slice = slice(None)) -> np.ndarray:
+        return self._apply(
+            1.0 / np.maximum(self.w[:, sl] + delta, 1e-300), sl)
 
     def isqrt(self, delta: float) -> np.ndarray:
         return self._apply(1.0 / np.sqrt(np.maximum(self.w + delta, 1e-300)))
@@ -225,10 +311,6 @@ class MatfreeContext:
     kernel_matvec: Matvec       # V ↦ K_norm·V  (normalized kernel)
     n: int
     probes: np.ndarray          # (n, r) Rademacher, fixed for the scan
-    # device-resident CG: (B, delta, tol, maxiter, x0=) -> X
-    # (engine_torch.TiledScan.device_cg with s0 bound) — the X/R/P block
-    # state stays on the device, the host reads (r,) norms per step
-    device_solve: Callable[..., np.ndarray]
     lanczos_m: int = 40
     cg_tol: float = 1e-8
     cg_maxiter: int = 400
@@ -239,7 +321,19 @@ class MatfreeContext:
     # the LL is flat (dLL/dδ = 0), so half the depth costs ~nothing in
     # decision accuracy and halves the dominant per-iteration store work
     solve_m_refit: int = 64
-    cache_max_bytes: int = 2 << 30   # per-cache basis budget (V is m·n·r f64)
+    # the budget counts the reference's host f64 basis (V is m·n·r f64),
+    # so the port takes the same cache and chunking decisions
+    cache_max_bytes: int = 2 << 30
+    # device-resident CG: (B, delta, tol, maxiter, x0=) -> X
+    # (engine_torch.TiledScan.device_cg with s0 bound) — the X/R/P block
+    # state stays on the device, the host reads (r,) norms per step
+    device_solve: Optional[Callable[..., np.ndarray]] = None
+    # device-resident Lanczos: (Z, m, reorth) -> (alphas, betas, z_norm,
+    # basis_dev) — ShiftedKrylov keeps the basis on the device
+    device_lanczos: Optional[Callable] = None
+    # record → individual index of a one-hot Zmat (None: no Zmat, or one
+    # that is not one-hot); Zᵀ·A and Z·W become a segment sum and a gather
+    z_idx: Optional[np.ndarray] = None
     _logdet_sk: Optional[ShiftedKrylov] = dataclasses.field(
         default=None, init=False, repr=False)
     _isqrt_sk: Optional[ShiftedKrylov] = dataclasses.field(
@@ -252,22 +346,80 @@ class MatfreeContext:
 
     def solve_block(self, delta: float, B: np.ndarray,
                     x0: Optional[np.ndarray] = None) -> np.ndarray:
-        """H(δ)⁻¹·B by the device CG. ``x0`` (e.g. a cached Krylov solve
-        at the same δ) warm-starts it; the result meets the same relative
-        tolerance as a cold solve."""
+        """H(δ)⁻¹·B by the device CG when it is wired, else the host
+        blocked CG. ``x0`` (e.g. a cached Krylov solve at the same δ)
+        warm-starts either; the result meets the same relative tolerance
+        as a cold solve."""
         if x0 is not None and x0.shape != B.shape:
             x0 = None
-        return self.device_solve(B, delta, self.cg_tol, self.cg_maxiter,
-                                 x0=x0)
+        if self.device_solve is not None:
+            return self.device_solve(B, delta, self.cg_tol, self.cg_maxiter,
+                                     x0=x0)
+        return blocked_cg(self.h_matvec(delta), B,
+                          tol=self.cg_tol, maxiter=self.cg_maxiter, x0=x0)
+
+    def solve_block_shifts(self, shifts: np.ndarray, B: np.ndarray,
+                           x0: Optional[np.ndarray] = None) -> np.ndarray:
+        """H(δ_col)⁻¹·B with a PER-COLUMN shift δ (one per RHS column).
+
+        The multi-shift batched solve behind the lockstep multi-trait and
+        permutation paths: trait operators H_t = K/s0 + δ_t·I differ only
+        in the diagonal, so one kernel matvec per CG iteration (one stack
+        pass) serves every trait's columns. Identical math per column to
+        solve_block (blocked CG freezes converged columns)."""
+        shifts = np.asarray(shifts, dtype=np.float64)
+        if shifts.shape != (B.shape[1],):
+            raise ValueError(f"{shifts.shape[0]} shifts for {B.shape[1]} "
+                             "columns")
+        if x0 is not None and x0.shape != B.shape:
+            x0 = None
+        if self.device_solve is not None:
+            return self.device_solve(B, shifts, self.cg_tol, self.cg_maxiter,
+                                     x0=x0)
+        return blocked_cg(
+            lambda V: self.kernel_matvec(V) + V * shifts[None, :],
+            B, tol=self.cg_tol, maxiter=self.cg_maxiter, x0=x0)
+
+    def z_apply(self, Z: Optional[np.ndarray], W: np.ndarray) -> np.ndarray:
+        """Z·W (individual-level columns to record level); a gather when
+        Z is one-hot, the identity without a Zmat."""
+        if Z is None:
+            return W
+        return W[self.z_idx] if self.z_idx is not None else Z @ W
+
+    def zt_apply(self, Z: Optional[np.ndarray], A: np.ndarray) -> np.ndarray:
+        """Zᵀ·A (record-level columns to individual level); a segment sum
+        when Z is one-hot, the identity without a Zmat."""
+        if Z is None:
+            return A
+        if self.z_idx is None:
+            return Z.T @ A
+        out = np.zeros((Z.shape[1],) + A.shape[1:])
+        np.add.at(out, self.z_idx, A)
+        return out
+
+    def isqrt_probes_shifts(self, deltas, probes: np.ndarray
+                            ) -> list[np.ndarray]:
+        """(K+δ_t·I)^(-1/2)·probes for each shift δ_t: the cached probe
+        basis when it fits the budget (:meth:`isqrt_probes`); over it, one
+        uncached device Lanczos serves every shift, so R traits or
+        permutations cost one set of stack passes, not R. Without the
+        device hook each shift runs the host recurrence (a host basis is
+        what the budget bounds)."""
+        if self.device_lanczos is None or ShiftedKrylov.cache_bytes(
+                *probes.shape, self.lanczos_m) <= self.cache_max_bytes:
+            return [self.isqrt_probes(d, probes) for d in deltas]
+        sk = ShiftedKrylov(self.kernel_matvec, probes, self.lanczos_m,
+                           device_lanczos=self.device_lanczos)
+        return [sk.isqrt(d) for d in deltas]
 
     def logdet(self, delta: float) -> float:
         """log|K+δI| from the scan-wide probe Lanczos (built once;
-        quadrature needs only the tridiagonal — no basis is retained, so
-        this never allocates an (m,n,r) buffer)."""
+        quadrature needs only the tridiagonal — no basis is retained)."""
         if self._logdet_sk is None:
             self._logdet_sk = ShiftedKrylov(
                 self.kernel_matvec, self.probes, self.lanczos_m,
-                need_basis=False)
+                device_lanczos=self.device_lanczos, need_basis=False)
         return self._logdet_sk.logdet(delta)
 
     def isqrt_probes(self, delta: float, probes: np.ndarray) -> np.ndarray:
@@ -277,13 +429,20 @@ class MatfreeContext:
         shape — a different block rebuilds it."""
         if ShiftedKrylov.cache_bytes(*probes.shape, self.lanczos_m) \
                 > self.cache_max_bytes:
-            return lanczos_isqrt_apply(self.h_matvec(delta), probes,
-                                       m=self.lanczos_m)
+            # over the budget nothing is cached: each call runs its own
+            # Lanczos — on the device where the hook exists (the basis is
+            # f32 there, half the counted bytes, and freed on return),
+            # else the host recurrence
+            if self.device_lanczos is None:
+                return lanczos_isqrt_apply(self.h_matvec(delta), probes,
+                                           m=self.lanczos_m)
+            return self.isqrt_probes_shifts([delta], probes)[0]
         if self._isqrt_sk is None or self._isqrt_probes_ref is None \
                 or self._isqrt_probes_ref.shape != probes.shape \
                 or not np.array_equal(self._isqrt_probes_ref, probes):
             self._isqrt_sk = ShiftedKrylov(
-                self.kernel_matvec, probes, self.lanczos_m)
+                self.kernel_matvec, probes, self.lanczos_m,
+                device_lanczos=self.device_lanczos)
             self._isqrt_probes_ref = probes
         return self._isqrt_sk.isqrt(delta)
 
@@ -327,6 +486,7 @@ def reml_maximize_matfree(
     llim: float = -6.0, ulim: float = 8.0, ngrids: int = 24,
     delta_hint: Optional[float] = None,
     return_sk: bool = False,
+    solver: Optional[Callable[[float], np.ndarray]] = None,
 ):
     """Grid + golden-refine on the matrix-free LL. The grid is coarser
     than the exact path (each evaluation costs CG passes over the store);
@@ -342,7 +502,12 @@ def reml_maximize_matfree(
     ``return_sk=True`` additionally returns the reorthogonalized
     ShiftedKrylov basis on [X y] (or None when it didn't fit the cache
     budget) — the caller can reuse it to warm-start the next sweep's
-    H⁻¹[X y] solves (K is scan-invariant; only δ moves)."""
+    H⁻¹[X y] solves (K is scan-invariant; only δ moves).
+
+    ``solver`` (δ → H(δ)⁻¹[X y], width rank(X)+1) replaces the internal
+    basis build entirely — the multi-trait driver passes column slices of
+    ONE union-block Krylov basis shared by every trait, so R traits cost
+    one set of store passes instead of R."""
     m_basis = ctx.solve_m
     if delta_hint is not None and delta_hint > 0:
         c = math.log(delta_hint)
@@ -358,8 +523,24 @@ def reml_maximize_matfree(
     Xi, _ = reml_core.independent_cols(np.asarray(X, np.float64))
     B = np.column_stack([Xi, y])
     sk = None
-    if ShiftedKrylov.cache_bytes(*B.shape, m_basis) <= ctx.cache_max_bytes:
-        sk = ShiftedKrylov(ctx.kernel_matvec, B, m=m_basis, reorth=True)
+    if solver is not None:
+        # width check via the solver's advertised shape when it has one
+        # (a _UnionKrylov slice) — probing with a full solve just for the
+        # shape costs an O(n·m·width) apply
+        sshape = getattr(solver, "shape", None)
+        if sshape is not None:
+            if tuple(sshape) != B.shape:
+                solver = None  # rank changed under the caller
+        else:
+            probe = solver(1.0)
+            if probe is None or probe.shape != B.shape:
+                solver = None
+    if solver is not None:
+        def ll_of(d: float) -> float:
+            return _ll_from_solution(y, Xi, solver(d), ctx.logdet(d))[0]
+    elif ShiftedKrylov.cache_bytes(*B.shape, m_basis) <= ctx.cache_max_bytes:
+        sk = ShiftedKrylov(ctx.kernel_matvec, B, m=m_basis, reorth=True,
+                           device_lanczos=ctx.device_lanczos)
 
         def ll_of(d: float) -> float:
             return _ll_from_solution(y, Xi, sk.solve(d), ctx.logdet(d))[0]
@@ -383,7 +564,8 @@ def reml_maximize_matfree(
     delta = float(math.exp(res.x))
     # final fit values at δ̂ use exact CG solves (decision-path accuracy),
     # warm-started from the basis solution at δ̂ when one exists
-    x0 = sk.solve(delta) if sk else None
+    x0 = solver(delta) if solver is not None else (
+        sk.solve(delta) if sk else None)
     ll, yPy = reml_loglik_matfree(ctx, delta, y, X, x0=x0)
     # nq uses the RANK of X (independent_cols-reduced), matching the
     # n−q convention of the LL itself — collinear columns don't inflate σ²
@@ -408,6 +590,7 @@ def score_sweep_matfree(
     diag_probes: int = 128,
     exact_topk: int = 64,
     column_f64: Optional[Callable[[int], np.ndarray]] = None,
+    Z: Optional[np.ndarray] = None,
     guard_sigmas: float = 4.0,
     max_escalation_rounds: int = 4,
     exclude: Optional[list[int]] = None,
@@ -504,15 +687,17 @@ def score_sweep_matfree(
         probes = rng.choice((-1.0, 1.0), size=(n, diag_probes))
         HZp = ctx.isqrt_probes(fit.delta, probes)
 
-        # one device pass computes all per-SNP statistics. On a multi-host
+        # one device pass computes all per-SNP statistics; with an
+        # incidence matrix the effective sweep columns are Z·w_j, so dots
+        # against record-level vectors become Wᵀ·(Zᵀ·A). On a multi-host
         # backend the rows are this process's SNP range. The resident
         # packed stack reduces the probe block on device
         # (engine_torch.TiledScan.matfree_stat_rows: (p, q+3) transferred,
         # not (p, 1+q+r)).
         XtHiX_inv = np.linalg.inv(XtHiX)
-        A = np.column_stack([Py, HiX, HZp])       # (n, 1+q+r)
+        A = np.column_stack([Py, HiX, HZp])       # (n_rec, 1+q+r)
         ahat_l, U_l, diag_l, proj_l = backend.matfree_stat_rows(
-            A, q, XtHiX_inv)
+            ctx.zt_apply(Z, A), q, XtHiX_inv)
         if ck_file is not None:
             tmp = ck_file + f".tmp.{os.getpid()}"
             with open(tmp, "wb") as f:
@@ -555,6 +740,7 @@ def score_sweep_matfree(
         in multi-host — identical calls on every host) + the (â, u) rows
         gathered from their owning host."""
         Wsel = np.column_stack([column_f64(int(j)) for j in idx])
+        Wsel = ctx.z_apply(Z, Wsel)   # record-level effective columns
         HiW = ctx.solve_block(fit.delta, Wsel)
         diag_exact = np.sum(Wsel * HiW, axis=0)
         rows = np.zeros((len(idx), 1 + q))
@@ -636,6 +822,235 @@ def score_sweep_matfree(
     return t, cand, info
 
 
+def score_sweep_matfree_multi(
+    ctx: MatfreeContext,
+    backend,
+    ys: list[np.ndarray],
+    Xs: list[np.ndarray],
+    fits: list[reml_core.RemlResult],
+    diag_probes: int = 128,
+    exact_topk: int = 64,
+    column_f64: Optional[Callable[[int], np.ndarray]] = None,
+    guard_sigmas: float = 4.0,
+    max_escalation_rounds: int = 4,
+    excludes: Optional[list[list[int]]] = None,
+    sol0s: Optional[list[Optional[np.ndarray]]] = None,
+    escalation_batch: Optional[int] = None,
+) -> list[tuple[np.ndarray, int, dict]]:
+    """R traits' (or permutations') score sweeps batched through ONE set
+    of store passes (SURVEY.md §4.3's batching rule).
+
+    Identical statistics to R calls of :func:`score_sweep_matfree` — the
+    same Hutchinson probe block (seed 12345), the same guard-proof
+    protocol, and per-column-exact CG — but every store-bound stage is
+    batched across traits:
+
+    - the [X_t y_t] solves run as ONE multi-shift blocked CG
+      (``solve_block_shifts``: H_t differ only by δ_t, so one kernel
+      matvec per iteration serves every trait's columns);
+    - the per-SNP dot block is ONE ``matfree_stat_rows_multi`` pass over
+      the resident stack (the serial form's R× HBM traffic collapses to
+      1×);
+    - shortlist and escalation rescores concatenate every trait's
+      candidate columns into one multi-shift CG per round, with the
+      rounds advancing in LOCKSTEP across traits (multi-host collective
+      calls stay identical on every process).
+
+    Differences from the serial form are confined to non-decision
+    bookkeeping: escalation rounds are merged (the whole violating set
+    rescored per round, as in the single-trait ``escalation_batch``
+    path), which can only grow the exactly-rescored set.
+
+    No Zmat support (the multi-trait driver is Z-free; use per-trait
+    :func:`score_sweep_matfree` for repeated-measures designs).
+    """
+    from eagleeverything_tpu_torch.utils import distributed
+
+    R = len(ys)
+    n = ys[0].shape[0]
+    excludes = excludes if excludes is not None else [[] for _ in range(R)]
+    sol0s = sol0s if sol0s is not None else [None] * R
+    deltas = np.array([f.delta for f in fits])
+
+    # --- stage 0: one multi-shift CG for every trait's [X y] block ----
+    Xi_t, qs, cols = [], [], []
+    for t in range(R):
+        Xi, _ = reml_core.independent_cols(np.asarray(Xs[t], np.float64))
+        Xi_t.append(Xi)
+        qs.append(Xi.shape[1])
+        cols.append(Xi.shape[1] + 1)
+    B_cat = np.concatenate(
+        [np.column_stack([Xi_t[t], ys[t]]) for t in range(R)], axis=1)
+    shifts = np.concatenate(
+        [np.full(cols[t], deltas[t]) for t in range(R)])
+    x0 = None
+    if all(s is not None and s.shape == (n, cols[t])
+           for t, s in enumerate(sol0s)):
+        x0 = np.concatenate(sol0s, axis=1)
+    Sol_cat = ctx.solve_block_shifts(shifts, B_cat, x0=x0)
+
+    offs = np.concatenate([[0], np.cumsum(cols)])
+    Py_t, HiX_t, Minv_t = [], [], []
+    for t in range(R):
+        Sol = Sol_cat[:, offs[t] : offs[t + 1]]
+        q = qs[t]
+        HiX, Hiy = Sol[:, :q], Sol[:, q]
+        XtHiX = Xi_t[t].T @ HiX
+        XtHiy = Xi_t[t].T @ Hiy
+        Py_t.append(Hiy - HiX @ np.linalg.solve(XtHiX, XtHiy))
+        HiX_t.append(HiX)
+        Minv_t.append(np.linalg.inv(XtHiX))
+
+    # same probe block as the serial sweep (seed 12345): per-trait
+    # H_t^(-1/2)·probes are cheap per-δ applies of ONE probe-Krylov basis
+    # (cached, or one uncached device pass over the budget) — no extra
+    # store passes a trait
+    rng = np.random.default_rng(12345)
+    probes = rng.choice((-1.0, 1.0), size=(n, diag_probes))
+    HZ_t = ctx.isqrt_probes_shifts(deltas, probes)
+    A_list = [np.column_stack([Py_t[t], HiX_t[t], HZ_t[t]])
+              for t in range(R)]
+
+    # --- the ONE batched stack pass -----------------------------------
+    stats = backend.matfree_stat_rows_multi(A_list, qs, Minv_t)
+
+    mh = getattr(backend, "snp_range", None)
+    lo = mh[0] if mh is not None else 0
+    p = backend.p_global if mh is not None else stats[0][0].shape[0]
+    p_l = stats[0][0].shape[0]
+
+    t_est_t, excluded_t = [], []
+    for t in range(R):
+        ahat_l, U_l, diag_l, proj_l = stats[t]
+        vara_l = fits[t].sigma2_g * np.maximum(diag_l - proj_l, 1e-12)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            te_l = np.where(vara_l > 1e-12, ahat_l * ahat_l / vara_l, 0.0)
+        te = (distributed.allgather_concat_f64(te_l, backend.local_sizes)
+              if mh is not None else te_l)
+        excl = np.zeros(p, dtype=bool)
+        if excludes[t]:
+            excl[np.asarray(excludes[t], dtype=np.int64)] = True
+            te[excl] = 0.0
+        t_est_t.append(te)
+        excluded_t.append(excl)
+
+    if exact_topk <= 0 or column_f64 is None:
+        return [(t_est_t[t], int(np.argmax(t_est_t[t])),
+                 {"escalation_rounds": 0, "exhausted": False,
+                  "n_rescored": 0}) for t in range(R)]
+
+    # --- batched exact rescore ----------------------------------------
+    t_t = [te.copy() for te in t_est_t]
+    rescored_t = [excluded_t[t].copy() for t in range(R)]
+
+    def rescore_batched(idx_lists: list[np.ndarray]) -> list[np.ndarray]:
+        """Exact t per trait for per-trait index lists — ONE multi-shift
+        CG over the concatenated candidate columns (collective: every
+        host solves the same block)."""
+        widths = [len(ix) for ix in idx_lists]
+        if sum(widths) == 0:
+            return [np.zeros(0) for _ in range(R)]
+        Wsel = np.column_stack(
+            [column_f64(int(j)) for ix in idx_lists for j in ix])
+        sh = np.concatenate(
+            [np.full(widths[t], deltas[t]) for t in range(R)])
+        HiW = ctx.solve_block_shifts(sh, Wsel)
+        out, c0 = [], 0
+        for t in range(R):
+            w = widths[t]
+            Ws, Hs = Wsel[:, c0 : c0 + w], HiW[:, c0 : c0 + w]
+            c0 += w
+            if w == 0:
+                out.append(np.zeros(0))
+                continue
+            diag_exact = np.sum(Ws * Hs, axis=0)
+            ahat_l, U_l = stats[t][0], stats[t][1]
+            rows = np.zeros((w, 1 + qs[t]))
+            for i, j in enumerate(idx_lists[t]):
+                jl = int(j) - lo
+                if 0 <= jl < p_l:
+                    rows[i, 0] = ahat_l[jl]
+                    rows[i, 1:] = U_l[jl]
+            if mh is not None:
+                rows = distributed.allreduce_sum_f64(rows)
+            a_r, u_r = rows[:, 0], rows[:, 1:]
+            proj_r = np.einsum("jq,qr,jr->j", u_r, Minv_t[t], u_r)
+            vara_r = fits[t].sigma2_g * np.maximum(diag_exact - proj_r,
+                                                   1e-12)
+            out.append(np.where(vara_r > 1e-12, a_r * a_r / vara_r, 0.0))
+        return out
+
+    # stage 1: per-trait probe-ranked shortlists, one batched CG
+    tops, t_best = [], [0.0] * R
+    for t in range(R):
+        elig = np.nonzero(~excluded_t[t])[0]
+        k = min(exact_topk, elig.size)
+        top = elig[np.argpartition(t_est_t[t][elig], -k)[-k:]] \
+            if k > 0 else np.zeros(0, np.int64)
+        tops.append(top[np.argsort(-t_est_t[t][top], kind="stable")])
+    ts1 = rescore_batched(tops)
+    for t in range(R):
+        if tops[t].size:
+            t_t[t][tops[t]] = ts1[t]
+            rescored_t[t][tops[t]] = True
+            t_best[t] = float(ts1[t].max())
+
+    # stage 2: lockstep escalation — one batched CG per round over the
+    # union of every trait's bound-violating set
+    rel = min(0.9, guard_sigmas * math.sqrt(2.0 / max(diag_probes, 1)))
+    rounds = [0] * R
+    exhausted = [False] * R
+    cap = escalation_batch if escalation_batch is not None \
+        else max(exact_topk, 128)
+    for round_i in range(max_escalation_rounds + 1):
+        esc_sets = []
+        for t in range(R):
+            ahat_l, _, diag_l, proj_l = stats[t]
+            vara_lb_l = fits[t].sigma2_g * np.maximum(
+                diag_l * (1.0 - rel) - proj_l, 1e-12)
+            with np.errstate(divide="ignore", invalid="ignore"):
+                t_ub_l = np.where(vara_lb_l > 1e-12,
+                                  ahat_l * ahat_l / vara_lb_l, 0.0)
+            t_ub_l = np.where(rescored_t[t][lo : lo + p_l], 0.0, t_ub_l)
+            cand_l = np.nonzero(t_ub_l > t_best[t])[0]
+            pairs_l = np.column_stack([
+                (cand_l + lo).astype(np.float64), t_ub_l[cand_l]])
+            pairs = (distributed.allgather_varlen_f64(pairs_l)
+                     if mh is not None else pairs_l)
+            if pairs.shape[0] == 0:
+                esc_sets.append(np.zeros(0, np.int64))
+                continue
+            order = np.lexsort((pairs[:, 0], -pairs[:, 1]))
+            esc_sets.append(pairs[order[:cap], 0].astype(np.int64))
+        live = [t for t in range(R) if esc_sets[t].size]
+        if not live:
+            break
+        if round_i == max_escalation_rounds:
+            for t in live:
+                exhausted[t] = True
+            break
+        ts = rescore_batched(esc_sets)
+        for t in live:
+            t_t[t][esc_sets[t]] = ts[t]
+            rescored_t[t][esc_sets[t]] = True
+            t_best[t] = max(t_best[t], float(ts[t].max()))
+            rounds[t] += 1
+
+    out = []
+    for t in range(R):
+        exact_idx = np.nonzero(rescored_t[t] & ~excluded_t[t])[0]
+        if exact_idx.size == 0:
+            out.append((t_t[t], 0, {"escalation_rounds": 0,
+                                    "exhausted": False, "n_rescored": 0}))
+            continue
+        cand = int(exact_idx[int(np.argmax(t_t[t][exact_idx]))])
+        out.append((t_t[t], cand, {
+            "escalation_rounds": rounds[t], "exhausted": exhausted[t],
+            "n_rescored": int(np.count_nonzero(
+                rescored_t[t] & ~excluded_t[t]))}))
+    return out
+
+
 def gls_wald_stats_matfree(
     solve_block, y: np.ndarray, X0: np.ndarray, Wcols: np.ndarray,
     indices, delta: float, sigma2_g: float, sigma2_e: float,
@@ -671,12 +1086,20 @@ def gls_wald_stats_matfree(
     )
 
 
-def make_context(backend, n: int, probes: int = 32, seed: int = 4242,
+def make_context(backend, n: int, Z: Optional[np.ndarray] = None,
+                 probes: int = 32, seed: int = 4242,
                  lanczos_m: int = 40,
                  s0: Optional[float] = None) -> MatfreeContext:
     """Build a MatfreeContext over a scan backend: Hutchinson s0 estimate,
-    normalized kernel matvec, and the device CG hook (shared by the scan
-    and summary)."""
+    normalized (optionally Z-wrapped) kernel matvec, and the device CG and
+    Lanczos hooks (shared by the scan and summary).
+
+    A one-hot Z (one individual a record) reduces to an index vector:
+    Zᵀ·V is a segment sum and Z·U a gather, on the device inside the CG
+    and Lanczos steps, so repeated-measures designs keep the device
+    Krylov path. Any other Z (weights, several links a record) gets no
+    device hooks: its matvec Z·K·(Zᵀ·V)/s0 is wrapped on the host, solves
+    take :func:`blocked_cg` and recurrences the host :func:`_lanczos`."""
     n_ind = backend.src.n
     if s0 is None:
         # mean diag of MMt = E_j ‖w_j‖² — estimate with one probe pass:
@@ -687,12 +1110,38 @@ def make_context(backend, n: int, probes: int = 32, seed: int = 4242,
         s0 = float(np.mean(np.sum(Zp * KZ, axis=0)) / n_ind)
     s0 = s0 if s0 > 0 else 1.0
 
-    def kernel_matvec(V):
-        return backend.kernel_matvec(V) / s0
+    z_idx = None
+    if Z is not None:
+        Z = np.asarray(Z, dtype=np.float64)
+        # one-hot: each row's largest entry is 1 and the rows hold n_rec
+        # nonzeros in all, so that 1 is a row's only nonzero (its row sum
+        # is then 1, which the reference also tests) — two vectorised
+        # passes over Z, tens of GB at biobank n
+        cand = np.argmax(Z, axis=1)
+        if (np.all(Z[np.arange(Z.shape[0]), cand] == 1.0)
+                and np.count_nonzero(Z) == Z.shape[0]):
+            z_idx = cand.astype(np.int64)
 
-    def device_solve(B, delta, tol, maxiter, x0=None):
-        return backend.device_cg(B, delta, s0, tol=tol, maxiter=maxiter,
-                                 x0=x0)
+    if Z is None:
+        def kernel_matvec(V):
+            return backend.kernel_matvec(V) / s0
+    elif z_idx is not None:
+        def kernel_matvec(V):
+            Vi = np.zeros((n_ind, V.shape[1]))
+            np.add.at(Vi, z_idx, V)
+            return backend.kernel_matvec(Vi)[z_idx] / s0
+    else:
+        def kernel_matvec(V):
+            return Z @ backend.kernel_matvec(Z.T @ V) / s0
+
+    device_solve = device_lanczos = None
+    if Z is None or z_idx is not None:
+        def device_solve(B, delta, tol, maxiter, x0=None):
+            return backend.device_cg(B, delta, s0, tol=tol, maxiter=maxiter,
+                                     x0=x0, z_idx=z_idx)
+
+        def device_lanczos(Zc, m, reorth):
+            return backend.device_lanczos(Zc, m, reorth, s0, z_idx=z_idx)
 
     rng = np.random.default_rng(seed)
     return MatfreeContext(
@@ -700,6 +1149,8 @@ def make_context(backend, n: int, probes: int = 32, seed: int = 4242,
         probes=rng.choice((-1.0, 1.0), size=(n, probes)),
         lanczos_m=lanczos_m,
         device_solve=device_solve,
+        device_lanczos=device_lanczos,
+        z_idx=z_idx,
     )
 
 
@@ -728,10 +1179,16 @@ def forward_select_matfree(
     column_f64: Optional[Callable[[int], np.ndarray]] = None,
     quiet: bool = True,
     log_jsonl: Optional[str] = None,
+    Z: Optional[np.ndarray] = None,
     ckpt_dir: Optional[str] = None,
     resume: bool = False,
 ) -> AMResult:
-    """The AM loop with matrix-free REML + sweep (biobank n-scale mode)."""
+    """The AM loop with matrix-free REML + sweep (biobank n-scale mode).
+
+    With an incidence matrix Z (n_rec × n_ind), the record-level kernel
+    K_eff = Z·K·Zᵀ is reached matrix-free too:
+    K_eff·V = Z·(Wᵀ(W·(Zᵀ·V)))/s0 — Z never touches the device kernels.
+    """
     from eagleeverything_tpu_torch.utils import distributed
     from eagleeverything_tpu_torch.utils.logging import Phase, ScanLogger
 
@@ -741,10 +1198,12 @@ def forward_select_matfree(
     p = getattr(backend, "p_global", backend.src.p)
     logger = ScanLogger(quiet=quiet, jsonl_path=log_jsonl,
                         is_host0=distributed.is_host0())
+    if Z is not None:
+        Z = np.asarray(Z, dtype=np.float64)
 
     # the first kernel matvec (the s0 estimate) builds the resident stack
     with Phase(logger, "context"):
-        ctx = make_context(backend, n, probes=probes,
+        ctx = make_context(backend, n, Z=Z, probes=probes,
                            lanczos_m=lanczos_m, s0=s0)
     ctx.solve_m = solve_m
     ctx.solve_m_refit = solve_m_refit
@@ -790,7 +1249,7 @@ def forward_select_matfree(
         if state is not None:
             selected = [int(j) for j in state["selected"]]
             for j in selected:
-                X = np.hstack([X, column_f64(j)[:, None]])
+                X = np.hstack([X, ctx.z_apply(Z, column_f64(j))[:, None]])
             resume_delta = state.get("delta")
             if meta.get("fit_exact"):
                 # the checkpoint carries the exact CG-polished fit at this
@@ -836,7 +1295,7 @@ def forward_select_matfree(
             t, cand, esc = score_sweep_matfree(
                 ctx, backend, y, X, fit,
                 diag_probes=diag_probes, exact_topk=exact_topk,
-                column_f64=column_f64, exclude=selected,
+                column_f64=column_f64, Z=Z, exclude=selected,
                 sol0=sk_model.solve(fit.delta) if sk_model else None,
                 sweep_ckpt=ckpt_dir,
             )
@@ -855,6 +1314,7 @@ def forward_select_matfree(
         w_col = column_f64(cand) if column_f64 is not None else None
         if w_col is None:
             raise ValueError("forward_select_matfree needs column_f64")
+        w_col = ctx.z_apply(Z, w_col)
         X_new = np.hstack([X, w_col[:, None]])
         with Phase(logger, "refit"):
             fit_new, sk_new = reml_maximize_matfree(ctx, y, X_new,
@@ -898,3 +1358,272 @@ def forward_select_matfree(
         n=n, p=p, lam_ebic=lam_ebic,
         escalation_exhausted=escalation_exhausted or None,
     )
+
+
+# ---------------------------------------------------------------------------
+# Lockstep multi-trait forward selection (BASELINE config 5 at biobank n)
+# ---------------------------------------------------------------------------
+
+
+class _UnionKrylov:
+    """ONE batched reorthogonalized Lanczos pass over the column-
+    concatenation of several per-trait [X y] blocks; each trait's shifted
+    solves are column slices at that trait's own δ. Batched Lanczos treats
+    columns independently (per-column tridiagonals), so the union basis is
+    mathematically identical to R separate per-trait bases — but costs one
+    set of store passes instead of R. This is the fpr4am chunked-
+    permutation pattern applied to am_multi."""
+
+    def __init__(self, ctx: MatfreeContext, blocks: list[np.ndarray],
+                 m: int):
+        self.slices: list[slice] = []
+        c0 = 0
+        for b in blocks:
+            self.slices.append(slice(c0, c0 + b.shape[1]))
+            c0 += b.shape[1]
+        B = np.concatenate(blocks, axis=1)
+        self.sk: Optional[ShiftedKrylov] = None
+        if ShiftedKrylov.cache_bytes(*B.shape, m) <= ctx.cache_max_bytes:
+            self.sk = ShiftedKrylov(ctx.kernel_matvec, B, m=m, reorth=True,
+                                    device_lanczos=ctx.device_lanczos)
+
+    def solver(self, t: int):
+        """δ ↦ H(δ)⁻¹[X_t y_t] for trait slot ``t`` (None when the union
+        block exceeded the basis cache budget — callers fall back to CG).
+        The returned callable carries ``.shape`` so the caller's validity
+        check is a tuple compare, not a full union-width solve; the
+        eigen-coordinate apply touches ONLY this trait's column slice
+        (O(width) per δ, not O(r_total))."""
+        if self.sk is None:
+            return None
+        sl = self.slices[t]
+
+        def f(d, _sl=sl):
+            return self.sk.solve(d, sl=_sl)
+
+        f.shape = (self.sk.n, sl.stop - sl.start)
+        return f
+
+
+def forward_select_matfree_multi(
+    ys: np.ndarray,                # (R, n) traits
+    X0: np.ndarray,
+    backend,
+    maxit: int = 40,
+    fixit: bool = False,
+    lam_ebic: float = 1.0,
+    probes: int = 32,
+    lanczos_m: int = 40,
+    diag_probes: int = 128,
+    exact_topk: int = 64,
+    solve_m: int = 128,
+    solve_m_refit: int = 64,
+    cache_max_bytes: Optional[int] = None,
+    cg_tol: float = 1e-8,
+    cg_maxiter: int = 400,
+    column_f64: Optional[Callable[[int], np.ndarray]] = None,
+    quiet: bool = True,
+    trait_names: Optional[list[str]] = None,
+    s0: Optional[float] = None,
+    log_jsonl: Optional[str] = None,
+    ckpt_dir: Optional[str] = None,
+    resume: bool = False,
+) -> list[AMResult]:
+    """The AM loop for R traits in lockstep at biobank n (matrix-free).
+
+    Shared across traits: the kernel matvec and device packed stack, the
+    SLQ logdet cache (X-independent), the Hutchinson isqrt-probe basis
+    (same probe block for every trait), and — per iteration — ONE union-
+    block Krylov basis serving every active trait's δ-profile, sweep
+    warm start, and accept-test (see :class:`_UnionKrylov`); the sweeps
+    of every active trait run as one :func:`score_sweep_matfree_multi`
+    (multi-shift CG, one wide stat-rows pass, lockstep rescores).
+
+    Selection equality with per-trait :func:`forward_select_matfree` is
+    exact-by-construction up to CG tolerance: per-column Lanczos data in
+    the union basis is identical to the single-trait bases, and every
+    decision value (final LL, rescored t) is polished by exact CG.
+    Reference: repeated ``AM()`` calls (SURVEY.md §3.1 FPR4AM/AM notes);
+    BASELINE config 5.
+    """
+    from eagleeverything_tpu_torch.utils import distributed
+    from eagleeverything_tpu_torch.utils.logging import Phase, ScanLogger
+
+    ys = np.asarray(ys, dtype=np.float64)
+    X0 = np.asarray(X0, dtype=np.float64)
+    R, n = ys.shape
+    p = getattr(backend, "p_global", backend.src.p)
+    if column_f64 is None:
+        raise ValueError("forward_select_matfree_multi needs column_f64")
+    logger = ScanLogger(quiet=quiet, jsonl_path=log_jsonl,
+                        is_host0=distributed.is_host0())
+
+    # the first kernel matvec (the s0 estimate) builds the resident stack
+    with Phase(logger, "context"):
+        ctx = make_context(backend, n, probes=probes, lanczos_m=lanczos_m,
+                           s0=s0)
+    ctx.solve_m = solve_m
+    ctx.solve_m_refit = solve_m_refit
+    ctx.cg_tol = cg_tol
+    ctx.cg_maxiter = cg_maxiter
+    if cache_max_bytes is not None:
+        ctx.cache_max_bytes = int(cache_max_bytes)
+    m_refit = min(ctx.solve_m, max(ctx.solve_m_refit, 16))
+
+    def reduced_block(y, X):
+        Xi, _ = reml_core.independent_cols(X)
+        return np.column_stack([Xi, y])
+
+    def trait_fp(t: int) -> list:
+        return [round(float(np.sum(ys[t])), 6),
+                round(float(ys[t] @ ys[t]), 6)]
+
+    # per-trait state
+    X_t = [X0 for _ in range(R)]
+    selected: list[list[int]] = [[] for _ in range(R)]
+    extbic_path: list[list[float]] = [[] for _ in range(R)]
+    loglik_path: list[list[float]] = [[] for _ in range(R)]
+    outlier_stats: list[list[np.ndarray]] = [[] for _ in range(R)]
+    esc_exhausted: list[list[int]] = [[] for _ in range(R)]
+    active = list(range(R))
+    fits: list = [None] * R
+    best = [math.inf] * R
+    solver_t: list = [None] * R
+    it0 = 0
+
+    state = None
+    if resume and ckpt_dir is not None:
+        from eagleeverything_tpu_torch.utils import checkpoint as ckpt
+        state = ckpt.load_multi_scan_state(ckpt_dir)
+    if state is not None:
+        meta = state.get("meta", {})
+        fps = [s.get("fingerprint") for s in state["states"]]
+        if (meta.get("n"), meta.get("p"), meta.get("lam_ebic"),
+                len(state["states"])) != (n, p, lam_ebic, R) \
+                or fps != [trait_fp(t) for t in range(R)]:
+            raise ValueError("refusing to resume: multi-trait matfree "
+                             "checkpoint was written for different "
+                             "inputs (shape or trait fingerprints)")
+        active = []
+        for t, st in enumerate(state["states"]):
+            selected[t] = [int(j) for j in st["selected"]]
+            for j in selected[t]:
+                X_t[t] = np.hstack([X_t[t], column_f64(j)[:, None]])
+            extbic_path[t] = [float(v) for v in st["extbic_path"]]
+            loglik_path[t] = [float(v) for v in st["loglik_path"]]
+            best[t] = extbic_path[t][-1]
+            # the checkpointed fit is the loop's own exact accepted fit
+            fits[t] = reml_core.RemlResult(
+                delta=float(st["delta"]),
+                loglik=float(st["loglik_path"][-1]),
+                sigma2_g=float(st["sigma2_g"]),
+                sigma2_e=float(st["sigma2_e"]))
+            if st["active"]:
+                active.append(t)
+        it0 = int(meta.get("it_next", 0))
+        logger.event("resume", it_next=it0, active=len(active))
+    else:
+        # initial fits: one union basis over [X0 y_t] for every trait
+        with Phase(logger, "reml"):
+            uk = _UnionKrylov(ctx, [reduced_block(ys[t], X0)
+                                    for t in range(R)], ctx.solve_m)
+            for slot, t in enumerate(range(R)):
+                solver_t[t] = uk.solver(slot)
+                fits[t] = reml_maximize_matfree(ctx, ys[t], X_t[t],
+                                                solver=solver_t[t])
+                best[t] = reml_core.extbic(fits[t].loglik, n, p, 0,
+                                           lam_ebic)
+                extbic_path[t].append(best[t])
+                loglik_path[t].append(fits[t].loglik)
+
+    def save_ckpt(it_next: int) -> None:
+        if ckpt_dir is None:
+            return
+        from eagleeverything_tpu_torch.utils import checkpoint as ckpt
+        ckpt.save_multi_scan_state(
+            ckpt_dir,
+            [{"selected": selected[t], "extbic_path": extbic_path[t],
+              "loglik_path": loglik_path[t], "delta": fits[t].delta,
+              "sigma2_g": fits[t].sigma2_g, "sigma2_e": fits[t].sigma2_e,
+              "active": t in active, "fingerprint": trait_fp(t)}
+             for t in range(R)],
+            meta={"n": n, "p": p, "lam_ebic": lam_ebic,
+                  "it_next": it_next})
+
+    for it in range(it0, maxit):
+        if not active:
+            break
+        # 1) ONE batched sweep for every active trait: one multi-shift CG
+        #    for the [X_t y_t] solves, one matfree_stat_rows_multi pass
+        #    over the SHARED resident stack, lockstep batched rescores
+        #    (score_sweep_matfree_multi — the serial form paid one full
+        #    stack pass per trait per iteration)
+        cands: dict[int, int] = {}
+        with Phase(logger, "sweep", items=p * len(active)):
+            sweeps = score_sweep_matfree_multi(
+                ctx, backend,
+                [ys[t] for t in active], [X_t[t] for t in active],
+                [fits[t] for t in active],
+                diag_probes=diag_probes, exact_topk=exact_topk,
+                column_f64=column_f64,
+                excludes=[selected[t] for t in active],
+                sol0s=[solver_t[t](fits[t].delta) if solver_t[t] else None
+                       for t in active])
+        for slot, t in enumerate(active):
+            tv, cand, esc = sweeps[slot]
+            if esc["exhausted"]:
+                esc_exhausted[t].append(it)
+            outlier_stats[t].append(tv)
+            if tv[cand] > 0.0:
+                cands[t] = cand
+        active = [t for t in active if t in cands]
+        if not active:
+            break
+
+        # 2) one union refit basis over [X_t w_t y_t] for active traits
+        Xnew = {t: np.hstack([X_t[t], column_f64(cands[t])[:, None]])
+                for t in active}
+        with Phase(logger, "refit"):
+            uk = _UnionKrylov(
+                ctx, [reduced_block(ys[t], Xnew[t]) for t in active],
+                m_refit)
+            solvers = [uk.solver(slot) for slot in range(len(active))]
+            fits_new = [reml_maximize_matfree(
+                ctx, ys[t], Xnew[t], delta_hint=fits[t].delta, solver=sv)
+                for t, sv in zip(active, solvers)]
+        still = []
+        for t, sv, fit_new in zip(active, solvers, fits_new):
+            ebic_new = reml_core.extbic(fit_new.loglik, n, p,
+                                        len(selected[t]) + 1, lam_ebic)
+            accepted = bool(ebic_new < best[t]) or fixit
+            logger.event("iteration", it=it, trait=t, candidate=cands[t],
+                         extbic=float(ebic_new), accepted=accepted)
+            if not quiet:
+                print(f"[matfree-multi] it={it} trait={t} "
+                      f"cand={cands[t]} extBIC {best[t]:.4f} -> "
+                      f"{ebic_new:.4f} {'+' if accepted else 'stop'}")
+            if accepted:
+                selected[t].append(cands[t])
+                X_t[t], fits[t], best[t] = Xnew[t], fit_new, ebic_new
+                extbic_path[t].append(ebic_new)
+                loglik_path[t].append(fit_new.loglik)
+                solver_t[t] = sv     # [X_new y] block = next sweep's [X y]
+                still.append(t)
+        active = still
+        save_ckpt(it + 1)
+
+    logger.event("stack_passes", total=getattr(backend, "stack_passes", None))
+    logger.close()
+    out = []
+    for t in range(R):
+        res = AMResult(
+            indices=selected[t], extbic_path=extbic_path[t],
+            outlier_stats=outlier_stats[t], loglik_path=loglik_path[t],
+            sigma2_g=fits[t].sigma2_g, sigma2_e=fits[t].sigma2_e,
+            delta=fits[t].delta, n=n, p=p, lam_ebic=lam_ebic,
+            escalation_exhausted=esc_exhausted[t] or None,
+        )
+        if trait_names is not None:
+            res.trait_name = trait_names[t]
+        out.append(res)
+    return out

@@ -8,8 +8,11 @@ read it:
 
 - the matrix-free engine (models/bigscan), whose every pass over the stack
   is one of the two hand-written kernels of ops/packed: ``kernel_matvec``
-  (K·V = Wᵀ(W·V), packed_dot then packed_tdot — the unit of every Krylov
-  step) and ``sweep_dots`` / ``matfree_stat_rows`` (one packed_dot);
+  (K·V = Wᵀ(W·V), packed_dot then packed_tdot — the unit of every step of
+  the device CG and the device Lanczos, whose state and basis stay on the
+  device) and ``sweep_dots`` / ``matfree_stat_rows`` /
+  ``matfree_stat_rows_multi`` (one packed_dot, R traits side by side in
+  the last);
 - the exact eigenbasis engine (:func:`forward_select`,
   :func:`forward_select_multi`), the default below ``matfree_min_n``: the
   stack is unpacked a tile at a time into f32 W for the torch ops of
@@ -20,7 +23,9 @@ read it:
 The decision path stays on the host in float64; the device works in IEEE
 fp32. The CG solve keeps its X/R/P block on the device and the host reads
 only the (r,) residual norms, every other step — the form the JAX package
-ran on the TPU. Every source is packed into the same stack: a 2-bit store
+ran on the TPU; the Lanczos recurrence reads nothing until its last step.
+A one-hot Zmat enters both as a record → individual index (a segment sum
+and a gather around the kernel matvec). Every source is packed into the same stack: a 2-bit store
 ships its raw bytes, and a dense handle, an unpacked store or a row-masked
 source is packed on the host first.
 """
@@ -235,6 +240,27 @@ def _stats_from_D(D: torch.Tensor, Minv: torch.Tensor, q: int) -> torch.Tensor:
     return torch.cat([ahat, U, diag, proj], dim=1)
 
 
+def _stats_from_D_multi(D: torch.Tensor, Minv: torch.Tensor, q: int,
+                        R: int) -> torch.Tensor:
+    """R traits' statistics from one wide dot block D ((p, R·(1+q+r)), on
+    the device; Minv (R, q, q)): (p, R·(q+3)) rows [â, u, diag, proj] a
+    trait (reference: engine_jax._stats_from_D_multi_jit)."""
+    c = D.shape[1] // R
+    D3 = D.reshape(D.shape[0], R, c)
+    ahat = D3[:, :, :1]
+    U = D3[:, :, 1 : 1 + q]
+    WHZ = D3[:, :, 1 + q :]
+    diag = torch.sum(WHZ * WHZ, dim=2, keepdim=True) / WHZ.shape[2]
+    proj = torch.einsum("jtq,tqk,jtk->jt", U, Minv, U)[..., None]
+    return torch.cat([ahat, U, diag, proj], dim=2).reshape(D.shape[0],
+                                                          R * (q + 3))
+
+
+# columns of one matfree_stat_rows_multi pass (the reference's default
+# width cap): R traits' blocks are sub-batched under it
+MULTI_STAT_COLS = 640
+
+
 def stack_from_jax(Wp: np.ndarray, means: np.ndarray, n: int, p: int,
                    device) -> tuple[torch.Tensor, torch.Tensor]:
     """The JAX package's resident stack and means, as numpy arrays (int32
@@ -252,11 +278,27 @@ def stack_from_jax(Wp: np.ndarray, means: np.ndarray, n: int, p: int,
     return W_t, m_t
 
 
-def _cg_step(Wp, means, n: int, X, R, P, rs, thresh, delta, s0: float):
-    """One CG iteration on H = K/s0 + δI with the block state on the
-    device; converged columns are frozen (α = β = 0)."""
+def _kernel_apply(Wp, means, n: int, V: torch.Tensor,
+                  z_idx: Optional[torch.Tensor]) -> torch.Tensor:
+    """K·V (one launch each of packed_dot and packed_tdot); with the
+    record → individual index ``z_idx`` of a 0/1 incidence Z, the
+    record-space Z·K·Zᵀ·V: Zᵀ·V is a segment sum (``index_add_``, atomics
+    on CUDA, so not bitwise repeatable with repeated records) and Z·U a
+    gather."""
+    if z_idx is None:
+        return packed.kernel_matvec(Wp, V, means, n)
+    Vi = torch.zeros((n, V.shape[1]), dtype=V.dtype,
+                     device=V.device).index_add_(0, z_idx, V)
+    return packed.kernel_matvec(Wp, Vi, means, n)[z_idx]
+
+
+def _cg_step(Wp, means, n: int, X, R, P, rs, thresh, delta, s0: float,
+             z_idx: Optional[torch.Tensor] = None):
+    """One CG iteration on H = K/s0 + δI (record space with ``z_idx``)
+    with the block state on the device; converged columns are frozen
+    (α = β = 0)."""
     active = rs > thresh
-    HP = packed.kernel_matvec(Wp, P, means, n) / s0 + delta * P
+    HP = _kernel_apply(Wp, means, n, P, z_idx) / s0 + delta * P
     pHp = torch.sum(P * HP, dim=0)
     zero = torch.zeros_like(rs)
     alpha = torch.where(active & (pHp > 0), rs / pHp.clamp(min=1e-30), zero)
@@ -266,6 +308,33 @@ def _cg_step(Wp, means, n: int, X, R, P, rs, thresh, delta, s0: float):
     beta = torch.where(active, rs_new / rs.clamp(min=1e-30), zero)
     P = R + P * beta[None, :]
     return X, R, P, rs_new
+
+
+def _lanczos_step(matvec, basis: torch.Tensor, V: torch.Tensor,
+                  V_prev: torch.Tensor, beta_prev: torch.Tensor,
+                  reorth: bool):
+    """One batched Lanczos step on the device (reference: the body of
+    engine_jax._lanczos_chunk_steps). ``basis`` (r, k+1, n) holds the
+    vectors built so far, V (n, r) the newest; returns (α, β, next V).
+
+    Breakdown guard: β at the f32 roundoff floor means the column reached
+    an invariant subspace (e.g. a rank-deficient Z·K·Zᵀ); the next vector
+    is zeroed there, not divided by ~0, so the tridiagonal decouples and
+    the space already built stays exact."""
+    Hv = matvec(V)
+    alpha = torch.sum(V * Hv, dim=0)
+    Wv = Hv - V * alpha[None, :] - V_prev * beta_prev[None, :]
+    if reorth:
+        # full reorthogonalisation against the built basis, one batched
+        # product a column: coef (r, k+1) = basis · w, w -= basisᵀ · coef
+        coef = torch.bmm(basis, Wv.T[:, :, None])
+        Wv = Wv - torch.bmm(basis.transpose(1, 2), coef)[:, :, 0].T
+    beta = torch.linalg.vector_norm(Wv, dim=0)
+    ok = beta > 1e-5 * (torch.abs(alpha) + beta_prev + 1e-3)
+    beta = torch.where(ok, beta, torch.zeros_like(beta))
+    Vn = torch.where(ok[None, :], Wv / beta.clamp(min=1e-30)[None, :],
+                     torch.zeros_like(Wv))
+    return alpha, beta, Vn
 
 
 class TiledScan:
@@ -355,27 +424,44 @@ class TiledScan:
         return self._to_host(packed.kernel_matvec(
             Wp, self._to_device(V), self._pmeans, self.src.n))
 
-    def _h_apply_host(self, X: np.ndarray, delta, s0: float) -> np.ndarray:
-        """H·X for warm-start residuals."""
-        return self.kernel_matvec(X) / s0 + delta * X
+    def _h_apply_host(self, X: np.ndarray, delta, s0: float,
+                      z_idx: Optional[np.ndarray] = None) -> np.ndarray:
+        """H·X for warm-start residuals — record space when a Zmat index is
+        given (H = Z·K·Zᵀ/s0 + δI), else individual space."""
+        if z_idx is None:
+            return self.kernel_matvec(X) / s0 + delta * X
+        Vi = np.zeros((self.src.n, X.shape[1]))
+        np.add.at(Vi, z_idx, X)
+        return self.kernel_matvec(Vi)[z_idx] / s0 + delta * X
+
+    def _z_index(self, z_idx: Optional[np.ndarray]
+                 ) -> Optional[torch.Tensor]:
+        if z_idx is None:
+            return None
+        return torch.as_tensor(np.asarray(z_idx, dtype=np.int64),
+                               device=self.device)
 
     def device_cg(self, B: np.ndarray, delta, s0: float,
                   tol: float = 1e-6, maxiter: int = 400,
-                  x0: Optional[np.ndarray] = None) -> np.ndarray:
+                  x0: Optional[np.ndarray] = None,
+                  z_idx: Optional[np.ndarray] = None) -> np.ndarray:
         """Solve (WᵀW/s0 + δI)·X = B: a host-driven loop of single CG steps
         with X/R/P resident on the device; the host reads the (r,) residual
         norms every other step to test convergence and stalls. f32 on the
         device, so tol is floored at 1e-6. ``x0`` warm-starts the solve in
-        residual form (convergence stays relative to the ORIGINAL ‖B‖)."""
+        residual form (convergence stays relative to the ORIGINAL ‖B‖).
+        ``z_idx`` (record → individual index of a 0/1 incidence Zmat)
+        switches the operator to record space H = Z·K·Zᵀ/s0 + δI."""
         r = B.shape[1]
         if x0 is not None and x0.shape != B.shape:
             x0 = None
         Wp = self._packed_stack()
+        zi = self._z_index(z_idx)
         Bp = _pad_cols8(B)
         r_pad = Bp.shape[1]
         bn2 = np.maximum(np.sum(Bp.astype(np.float32) ** 2, axis=0), 1e-30)
         if x0 is not None:
-            R0 = B - self._h_apply_host(x0, delta, s0)
+            R0 = B - self._h_apply_host(x0, delta, s0, z_idx)
         else:
             R0, x0 = B, np.zeros_like(B)
         Rd = self._to_device(_pad_cols8(R0))
@@ -406,9 +492,51 @@ class TiledScan:
                     since = 0
                 floor = np.minimum(floor, rs_h)
             Xd, Rd, Pd, rs = _cg_step(Wp, self._pmeans, self.src.n, Xd, Rd,
-                                      Pd, rs, thresh, dlt, float(s0))
+                                      Pd, rs, thresh, dlt, float(s0), zi)
             self.stack_passes += 1
         return x0 + self._to_host(Xd)[:, :r]
+
+    def device_lanczos(self, Z: np.ndarray, m: int, reorth: bool,
+                       s0: float, z_idx: Optional[np.ndarray] = None):
+        """Batched Lanczos on K = WᵀW/s0 with the basis resident on the
+        device (reference: engine_jax.TiledScan.device_lanczos, its packed
+        branch). One Python loop of m steps, each one kernel matvec (K1
+        then K2) and a few torch ops; the host reads nothing until the end.
+        Columns are zero-padded to a multiple of 8 (inert). ``z_idx``
+        switches to the record-space kernel Z·K·Zᵀ/s0 (see device_cg).
+
+        Returns (alphas (m, r_pad), betas (m-1, r_pad), z_norm (r_pad,) —
+        host f64 — and the basis, a device f32 (r_pad, m, n_rows) tensor:
+        column-major, so reorthogonalisation and every later apply are
+        batched products a column)."""
+        m = min(m, Z.shape[0])
+        Wp = self._packed_stack()
+        zi = self._z_index(z_idx)
+        means, n_ind = self._pmeans, self.src.n
+
+        def matvec(V):
+            return _kernel_apply(Wp, means, n_ind, V, zi) / s0
+
+        Zd = self._to_device(_pad_cols8(Z))
+        n_rows, r = Zd.shape
+        z_norm = torch.linalg.vector_norm(Zd, dim=0)
+        V = Zd / z_norm.clamp(min=1e-30)[None, :]
+        basis = torch.empty((r, m, n_rows), dtype=torch.float32,
+                            device=self.device)
+        basis[:, 0] = V.T
+        alphas = torch.zeros((m, r), dtype=torch.float32, device=self.device)
+        betas = torch.zeros_like(alphas)
+        V_prev, beta_prev = torch.zeros_like(V), torch.zeros_like(z_norm)
+        for k in range(m):
+            alpha, beta, Vn = _lanczos_step(matvec, basis[:, : k + 1], V,
+                                            V_prev, beta_prev, reorth)
+            self.stack_passes += 1
+            alphas[k], betas[k] = alpha, beta
+            if k + 1 < m:
+                basis[:, k + 1] = Vn.T
+            V_prev, V, beta_prev = V, Vn, beta
+        return (self._to_host(alphas), self._to_host(betas)[: m - 1],
+                self._to_host(z_norm), basis)
 
     def sweep_dots(self, A: np.ndarray) -> np.ndarray:
         """Per-SNP dot products W·A ((p, r)), one packed_dot launch."""
@@ -438,6 +566,55 @@ class TiledScan:
                               self.src.n)
         out = self._to_host(_stats_from_D(D, self._to_device(M_pad), q8))
         return (out[:, 0], out[:, 1 : 1 + q], out[:, 1 + q8], out[:, 2 + q8])
+
+    def matfree_stat_rows_multi(
+        self, A_list: list[np.ndarray], q_list: list[int],
+        Minv_list: list[np.ndarray],
+    ) -> list[tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]]:
+        """R traits' (or permutations') sweep statistics from ONE packed_dot
+        over the concatenated blocks (reference:
+        engine_jax.TiledScan.matfree_stat_rows_multi).
+
+        A_list[t] = [P̃y_t, H⁻¹X_t (q_t cols), H^(-1/2)probes_t (r cols)]
+        with a common probe count r; q_t may differ, and every trait is
+        padded to one multiple-of-8 q (zero columns are inert). Traits are
+        sub-batched so one launch stays within MULTI_STAT_COLS columns.
+        Returns per-trait (ahat, U, diag, proj)."""
+        R = len(A_list)
+        if R == 1:
+            return [self.matfree_stat_rows(A_list[0], q_list[0],
+                                           Minv_list[0])]
+        r = A_list[0].shape[1] - 1 - q_list[0]
+        q8 = -(-max(max(q_list), 1) // 8) * 8
+        c = 1 + q8 + r
+        if R * c > MULTI_STAT_COLS:
+            per = max(1, MULTI_STAT_COLS // c)
+            out = []
+            for s in range(0, R, per):
+                out.extend(self.matfree_stat_rows_multi(
+                    A_list[s : s + per], q_list[s : s + per],
+                    Minv_list[s : s + per]))
+            return out
+        self.stack_passes += 1
+        Wp = self._packed_stack()
+        A_cat = np.zeros((A_list[0].shape[0], R * c))
+        M_cat = np.zeros((R, q8, q8))
+        for t, (A, qt) in enumerate(zip(A_list, q_list)):
+            if A.shape[1] - 1 - qt != r:
+                raise ValueError("matfree_stat_rows_multi needs a common "
+                                 "probe count")
+            A_cat[:, t * c] = A[:, 0]
+            A_cat[:, t * c + 1 : t * c + 1 + qt] = A[:, 1 : 1 + qt]
+            A_cat[:, t * c + 1 + q8 : (t + 1) * c] = A[:, 1 + qt :]
+            M_cat[t, :qt, :qt] = Minv_list[t]
+        D = packed.packed_dot(Wp, self._to_device(A_cat), self._pmeans,
+                              self.src.n)
+        out = self._to_host(_stats_from_D_multi(D, self._to_device(M_cat),
+                                                q8, R))
+        w = q8 + 3
+        return [(out[:, t * w], out[:, t * w + 1 : t * w + 1 + qt],
+                 out[:, t * w + 1 + q8], out[:, t * w + 2 + q8])
+                for t, qt in enumerate(q_list)]
 
     def column_f64(self, j: int) -> np.ndarray:
         """The f64 recoded W column for SNP j (reference:

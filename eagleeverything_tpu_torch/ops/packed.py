@@ -118,8 +118,11 @@ def recode(Wp: torch.Tensor, means: torch.Tensor, n: int) -> torch.Tensor:
     table = _byte_table(Wp.device, float("nan"))
     step = _row_chunk(n)
     for i0 in range(0, rows, step):
-        vals = table[_bytes(Wp[i0 : i0 + step])]
-        vals = vals.reshape(vals.shape[0], -1)[:, :n]
+        byts = _bytes(Wp[i0 : i0 + step])
+        # one row of the table a byte (index_select: a plain gather of
+        # whole rows, faster on the CPU than advanced indexing)
+        vals = table.index_select(0, byts.reshape(-1))
+        vals = vals.reshape(byts.shape[0], -1)[:, :n]
         out[i0 : i0 + step] = torch.where(
             torch.isnan(vals), means[i0 : i0 + step, None] - 1.0, vals)
     return out

@@ -50,11 +50,16 @@ def port_matfree(pallas_store):
                    {"y": sim.y}, maxit=3, engine="matfree", device="cpu")
 
 
-def test_matfree_matches_jax_pallas_engine(pallas_store, port_matfree):
+@pytest.fixture(scope="module")
+def jax_matfree(pallas_store):
     d, sim = pallas_store
     cfg = JaxConfig(snp_tile=256, device_cache_gb=3e-3, pallas_packed=True)
-    ref = ee.am("y", JaxHandle(n=NP_, p=PP_, source="t", store_dir=d),
-                {"y": sim.y}, maxit=3, engine="matfree", config=cfg)
+    return ee.am("y", JaxHandle(n=NP_, p=PP_, source="t", store_dir=d),
+                 {"y": sim.y}, maxit=3, engine="matfree", config=cfg)
+
+
+def test_matfree_matches_jax_pallas_engine(port_matfree, jax_matfree):
+    ref = jax_matfree
     assert port_matfree.indices == ref.indices
     assert len(port_matfree.indices) >= 1
     np.testing.assert_allclose(port_matfree.extbic_path, ref.extbic_path,
@@ -136,22 +141,29 @@ def test_krylov_primitives_match_jax():
         assert sk.logdet(d) == pytest.approx(ref.logdet(d), rel=1e-12)
 
 
-def test_engines_not_in_this_slice_raise(pallas_store):
-    """What the port does not carry yet raises: the multi-device engine,
-    Zmat on the matrix-free engine and the matrix-free am_multi (forced,
-    or by "auto" above matfree_min_n)."""
+def test_engines_not_in_this_slice_raise(pallas_store, jax_matfree):
+    """Only the multi-device engine still raises. The routes that raised
+    before this slice now run and agree with the JAX package's scan of
+    the same trait: Zmat on the matrix-free engine (an identity Zmat:
+    K_eff = K, through the record-space device CG and Lanczos) and the
+    matrix-free am_multi, forced and by "auto" above matfree_min_n."""
     _, sim = pallas_store
     with pytest.raises(NotImplementedError, match="multi-device.*item 9"):
         port.am("y", sim.geno, {"y": sim.y}, engine="sharded", device="cpu")
-    with pytest.raises(NotImplementedError, match="Zmat.*item 6"):
-        port.am("y", sim.geno, {"y": sim.y}, Zmat=np.eye(NP_),
-                engine="matfree", device="cpu")
-    with pytest.raises(NotImplementedError, match="matrix-free.*item 7"):
-        port.am_multi(["y"], sim.geno, {"y": sim.y}, engine="matfree",
-                      device="cpu")
-    with pytest.raises(NotImplementedError, match="matrix-free.*item 7"):
-        port.am_multi(["y"], sim.geno, {"y": sim.y}, device="cpu",
-                      config=port.EagleConfig(matfree_min_n=NP_ - 1))
+    runs = {
+        "zmat": port.am("y", sim.geno, {"y": sim.y}, Zmat=np.eye(NP_),
+                        maxit=3, engine="matfree", device="cpu"),
+        "am_multi": port.am_multi(["y"], sim.geno, {"y": sim.y}, maxit=3,
+                                  engine="matfree", device="cpu")["y"],
+        "am_multi_auto": port.am_multi(
+            ["y"], sim.geno, {"y": sim.y}, maxit=3, device="cpu",
+            config=port.EagleConfig(matfree_min_n=NP_ - 1))["y"]}
+    for name, res in runs.items():
+        assert res.indices == jax_matfree.indices, name
+        np.testing.assert_allclose(res.extbic_path, jax_matfree.extbic_path,
+                                   rtol=1e-3, err_msg=name)
+    np.testing.assert_array_equal(runs["am_multi_auto"].extbic_path,
+                                  runs["am_multi"].extbic_path)
 
 
 def test_cuda_asked_for_and_absent_raises(pallas_store, monkeypatch):

@@ -5,8 +5,9 @@ read through each package's own ``read_marker``: the same selections, the
 exact ``summary_am`` and ``fpr4am``'s λ_crits at rtol 1e-6, the matrix-free
 summary at rtol 1e-4 and within that file's bands, the same ``.html`` plot,
 and that file's batching-invariance and λ_crit-semantics properties on the
-port. Also ``am_multi``'s JAX keywords, and the paths not yet ported
-raising NotImplementedError."""
+port. Also ``am_multi``'s JAX keywords, and the matrix-free routes this
+port took last (Zmat in the summary, ``fpr4am``) against the JAX
+package's."""
 
 import dataclasses
 import os
@@ -132,11 +133,20 @@ def test_summary_matfree_matches_jax(handles, scans, delta):
 
 
 def test_summary_matfree_zmat_not_ported(handles, scans):
-    _, res = scans
+    """The matrix-free summary with a Zmat, which raised before Zmat was
+    ported to the matrix-free engine, agrees with the JAX package's at
+    rtol 1e-4 (an identity Zmat, one-hot: the record-space device CG)."""
+    ref_res, res = scans
+    g, ph, _ = handles["jax"]
+    ref = ee.summary_am(ref_res, "y", g, ph, fformula=FF, Zmat=np.eye(g.n),
+                        quiet=True, engine="matfree")
     g, ph, _ = handles["port"]
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        port.summary_am(res, "y", g, ph, Zmat=np.eye(g.n), quiet=True,
-                        engine="matfree", device="cpu")
+    got = port.summary_am(res, "y", g, ph, fformula=FF, Zmat=np.eye(g.n),
+                          quiet=True, engine="matfree", device="cpu")
+    assert got.indices == ref.indices
+    for f in ("beta", "se", "pvalue"):
+        np.testing.assert_allclose(getattr(got, f), getattr(ref, f),
+                                   rtol=1e-4, err_msg=f)
 
 
 def test_fpr4am_matches_jax(handles):
@@ -189,11 +199,28 @@ def test_fpr_lambda_crit_semantics(handles):
 @pytest.mark.parametrize("engine,cfg", [("matfree", None),
                                         ("auto", {"matfree_min_n": 10})])
 def test_fpr4am_matfree_not_ported(handles, engine, cfg):
+    """The matrix-free calibration, which raised before it was ported,
+    forced and by "auto" above matfree_min_n: the JAX package's
+    permutations pick the same candidates (it prints them) and λ_crit
+    agrees at rtol 2e-3 (tests/test_fuzz_parity.py)."""
+    import contextlib
+    import io
+    import re
+
+    from eagleeverything_tpu.utils.config import EagleConfig as JaxConfig
+    g, ph, _ = handles["jax"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ref = ee.fpr4am("y", g, ph, numreps=3, seed=2, engine=engine,
+                        config=JaxConfig(**(cfg or {})), quiet=False)
+    cands = [int(c) for c in re.findall(r"matfree\] rep=\d+ cand=(\d+)",
+                                        buf.getvalue())]
     g, ph, _ = handles["port"]
-    config = port.EagleConfig(**cfg) if cfg else port.EagleConfig()
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        port.fpr4am("y", g, ph, numreps=2, engine=engine, config=config,
-                    device="cpu")
+    got = port.fpr4am("y", g, ph, numreps=3, seed=2, engine=engine,
+                      config=port.EagleConfig(**(cfg or {})), device="cpu")
+    assert got["candidates"].tolist() == cands and len(cands) == 3
+    np.testing.assert_allclose(got["lambda_crits"], ref["lambda_crits"],
+                               rtol=2e-3)
 
 
 def test_plot_html_matches_jax(handles, scans, tmp_path):

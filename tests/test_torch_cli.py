@@ -70,15 +70,36 @@ def test_cli_multi_trait_and_fpr(tmp_path, capsys):
     assert "calibrated lambda" in capsys.readouterr().out
 
 
+def test_cli_fpr4am_matfree_matches_jax_cli(capsys):
+    """The calibration on the matrix-free engine through the CLI: the same
+    per-permutation candidates and λ* line as the JAX CLI's."""
+    argv = ["fpr4am", *SCAN, "--numreps", "2", "--seed", "3", "--engine",
+            "matfree"]
+    assert cli.main(argv + ["--device", "cpu"]) == 0
+    got = capsys.readouterr().out
+    assert jcli.main(argv) == 0
+    ref = capsys.readouterr().out
+
+    def cands(out):
+        return [ln.split("lambda_crit")[0] for ln in out.splitlines()
+                if ln.startswith("[fpr4am:matfree]")]
+
+    assert cands(got) == cands(ref) and len(cands(got)) == 2
+    lam = [float(out.split("calibrated lambda = ")[1].split()[0])
+           for out in (got, ref)]
+    assert lam[0] == pytest.approx(lam[1], rel=2e-3, abs=1e-3)
+
+
 @pytest.mark.parametrize("argv", [
     ["am", "--trait", "zzz"],
     ["am", "--trait", "y", "--geno", "/does/not/exist"],
     ["am", "--trait", "y", "--engine", "sharded"],
-    ["fpr4am", "--trait", "y", "--engine", "matfree"],
+    ["fpr4am", "--trait", "zzz", "--engine", "matfree"],
 ])
 def test_cli_error_paths(argv, capsys):
-    """As in tests/test_api.py: a bad input ends with rc 2 and a message;
-    the paths not yet ported end the same way."""
+    """As in tests/test_api.py: a bad input ends with rc 2 and a message,
+    on the matrix-free calibration too; the path not yet ported (the
+    multi-device engine) ends the same way."""
     base = {"--geno": os.path.join(TUT, "geno.txt"),
             "--pheno": os.path.join(TUT, "pheno.txt")}
     for flag, path in base.items():

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, and the
-exact engine, ``fpr4am`` and ``summary_am`` on the card against the CPU.
+exact engine, the device Lanczos, ``fpr4am`` and ``summary_am`` on the card
+against the CPU.
 
 These tests need an NVIDIA GPU (the kernels have no CPU mode) and skip
 without one. They import neither JAX nor the JAX package, so they run on a
@@ -155,6 +156,63 @@ def test_bitwise_repeatable(cuda, kernel, r):
     b = fn(Wp, X, means, 1001)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("r", [548, 640])
+def test_packed_dot_wide_matches_plain_and_repeats(cuda, r):
+    """K1 at the multi-trait widths (matfree_stat_rows_multi: 4 traits of
+    1 + 8 + 128 columns, and the 640-column cap): several 144-wide column
+    tiles on grid.y over one split pre-pass, against the plain version at
+    1e-4 of scale and against itself bit for bit."""
+    _, Wp, means, rng = _scan(1001, cuda)
+    A = torch.from_numpy(rng.standard_normal((1001, r)).astype(np.float32)
+                         ).to(cuda)
+    D = packed.packed_dot(Wp, A, means, 1001)
+    again = packed.packed_dot(Wp, A, means, 1001)
+    ref = packed.packed_dot_plain(Wp, A, means, 1001)
+    torch.cuda.synchronize()
+    assert torch.equal(D, again)
+    assert (D - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+    assert not D[5].any()
+
+
+@pytest.mark.parametrize("zidx", [False, True])
+def test_device_lanczos_on_card_matches_cpu(cuda, zidx):
+    """The device Lanczos on the card against the same steps on the CPU
+    (plain kernel versions): z_norm at rtol 1e-6, the leading 8 α and β at
+    rtol/atol 1e-3 (tests/test_packed_stack.py:107's bounds), and the
+    basis's solves through ShiftedKrylov at 1e-3 of scale."""
+    from eagleeverything_tpu_torch.models import bigscan
+    sc_g, _, _, rng = _scan(1001, cuda)
+    sc_c, _, _, _ = _scan(1001, "cpu")
+    z_idx = (np.concatenate([np.arange(1001), rng.integers(0, 1001, 99)])
+             if zidx else None)
+    Z = rng.standard_normal((1001 if z_idx is None else 1100, 6))
+    out = {}
+    for name, sc in (("card", sc_g), ("cpu", sc_c)):
+        out[name] = sc.device_lanczos(Z, 24, True, 900.0, z_idx=z_idx)
+    (ag, bg, zg, Vg), (ac, bc, zc, _) = out["card"], out["cpu"]
+    assert Vg.device.type == "cuda"
+    np.testing.assert_allclose(zg, zc, rtol=1e-6)
+    np.testing.assert_allclose(ag[:8, :6], ac[:8, :6], rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(bg[:8, :6], bc[:8, :6], rtol=1e-3, atol=1e-3)
+    sk = {}
+    for name, sc in (("card", sc_g), ("cpu", sc_c)):
+        ctx = bigscan.make_context(sc, Z.shape[0], s0=900.0,
+                                   Z=None if z_idx is None else
+                                   _incidence(z_idx, 1001))
+        sk[name] = bigscan.ShiftedKrylov(ctx.kernel_matvec, Z, 24,
+                                         reorth=True,
+                                         device_lanczos=ctx.device_lanczos)
+    ref = sk["cpu"].solve(0.5)
+    np.testing.assert_allclose(sk["card"].solve(0.5), ref,
+                               atol=1e-3 * np.abs(ref).max())
+
+
+def _incidence(z_idx, n):
+    Z = np.zeros((len(z_idx), n))
+    Z[np.arange(len(z_idx)), z_idx] = 1.0
+    return Z
 
 
 def _workflow_data(missing_rate: float):
