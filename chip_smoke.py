@@ -79,10 +79,22 @@ Phases, each fatal when its check fails:
    a permutation;
 15. the matrix-free parity cells, card against CPU: the same selections
    (candidates), extBIC (λ_crit) within rtol 1e-3;
-16. a summary line per kernel and the kernels' JSON line (launches by path,
+16. world 1 on a real NCCL group (``cpu:gloo,cuda:nccl``):
+   ``am(engine="sharded")`` on phase 8's cohort must select what phase 8
+   selected, extBIC within rtol 1e-6, with ``mmt_psum`` and
+   ``score_and_argmax_from_T`` timed between CUDA events; the Lp-form
+   sweep op in f32 and bf16 on the card;
+17. two ranks of this script on the one card (``--rank``; gloo, handed the
+   CUDA tensors: NCCL refuses two ranks on one device): the sharded scan
+   on phase 8's cohort (phase 16's selection) and the matrix-free scan
+   through MultiHostTiledScan on phase 6's cohort (phase 6's selection,
+   extBIC within rtol 1e-3), each rank's kernel launches read around
+   exactly that call and the first launch at each width held against the
+   plain version; both ranks must exit 0 with equal bits;
+18. a summary line per kernel and the kernels' JSON line (launches by path,
    each read around exactly that call: the matrix-free am, summary_am,
-   am with Zmat, am_multi and fpr4am), then the last line
-   ``{"ok": true, "device": {...}}``.
+   am with Zmat, am_multi, fpr4am and each rank of phase 17's matrix-free
+   am), then the last line ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside a checkout, it exits non-zero with no result line.
 """
@@ -95,6 +107,7 @@ import json
 import math
 import os
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -938,7 +951,8 @@ def main_path_phase(torch, ep, packed, tmp: str, n: int, p: int, seed: int,
         print("the profiler recorded no device events in the traced "
               "iteration (traced: " + str(tr.done) + ")", flush=True)
     return {"launches": launches, "wall_s": wall, "peak_bytes": peak,
-            "indices": res.indices, "cohort": c, "lanczos": lz,
+            "indices": res.indices, "extbic_path": res.extbic_path,
+            "cohort": c, "lanczos": lz,
             "trace": trace, "phases": scan_phases(events)}
 
 
@@ -1182,6 +1196,343 @@ def fpr_matfree_phase(torch, ep, packed, parity_cohort,
         check(launches[k] >= 1, f"{k} was never launched by fpr4am")
     return {"launches": launches, "wall_s": wall, "per_perm_s": wall / reps,
             "card": card}
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def collective_costs() -> dict:
+    """OpTimer targets for the sharded engine's collectives: (FLOPs, bytes)
+    of a call from its operands' shapes (each input read once, each output
+    written once)."""
+    from eagleeverything_tpu_torch.parallel import collectives
+
+    def mmt(args):
+        rows, n = args[0].shape
+        return 2 * rows * n * n, 4 * (rows * n + n * n)
+
+    def from_t(args):
+        (rows, e), q = args[0].shape, args[2].shape[1]
+        return 2 * rows * e * (q + 1) + 3 * rows * e, 4 * (rows * e + 2 * rows)
+
+    return {"mmt_psum": (collectives, "mmt_psum", mmt),
+            "score_and_argmax_from_T": (collectives,
+                                        "score_and_argmax_from_T", from_t)}
+
+
+def world1_phase(torch, ep, packed, kernels, tmp: str, cfg2: dict,
+                 dev) -> dict:
+    """Phase 16: the SNP-sharded exact engine at world 1 on a real NCCL
+    group (``cpu:gloo,cuda:nccl`` over a local TCP store): phase 8's
+    cohort, phase 8's selection; its collectives timed between CUDA
+    events. Then the Lp-form sweep op in f32 and bf16 on the card."""
+    import torch.distributed as dist
+    from eagleeverything_tpu_torch.utils import distributed
+    phase("16. world 1 on an NCCL group: am(engine='sharded') at BASELINE "
+          "config 2 (2000 x 100 000, phase 8's cohort, uncut)")
+    c = cfg2["cohort"]
+    distributed.initialize(f"127.0.0.1:{free_port()}", 1, 0)
+    try:
+        backend = str(dist.get_backend_config())
+        print(f"group: world {dist.get_world_size()}, backend {backend}",
+              flush=True)
+        check("cuda:nccl" in backend, f"no NCCL group for CUDA: {backend}")
+        handle = ep.GenoHandle(n=c.n, p=c.p, source="config2",
+                               store_dir=c.store_dir)
+        log = os.path.join(tmp, "sharded_w1.jsonl")
+        torch.cuda.synchronize()
+        packed.reset_launches()
+        t0 = time.perf_counter()
+        with OpTimer(torch, collective_costs()) as timer:
+            res = ep.am("y", handle, {"y": c.y}, maxit=10,
+                        engine="sharded", log_jsonl=log)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(packed.LAUNCHES)
+        ops = timer.report()
+        warm = warm_collectives(torch, ep, c, dev)
+    finally:
+        distributed.shutdown()
+    phases = scan_phases(read_log(log))
+    print("  phase mmt {:.3f} s, eigh {:.3f} s, sweeps {} s".format(
+        phases["mmt"][0], phases["eigh"][0],
+        " / ".join(f"{w:.3f}" for w in phases.get("sweep", []))))
+    print_ops(ops)
+    print(f"selected {res.indices} (phase 8: {cfg2['indices']}); extBIC "
+          f"path {res.extbic_path}")
+    gap = rel_gap(res.extbic_path, cfg2["extbic_path"])
+    print(f"am(engine='sharded') wall {wall:.1f} s; extBIC gap to phase 8 "
+          f"{gap:.2e}; packed-stack launches {launches}", flush=True)
+    check(res.indices == cfg2["indices"],
+          "the sharded engine selected other SNPs than phase 8")
+    check(gap <= 1e-6, f"extBIC of the sharded engine off phase 8's: {gap}")
+    check(not any(launches.values()),
+          f"the sharded engine launched packed-stack kernels: {launches}")
+    check(ops["mmt_psum"]["calls"] == 1 and
+          ops["score_and_argmax_from_T"]["calls"] >= 1,
+          "the sharded engine did not run its collectives")
+    print("  (the calls inside am() carry the NCCL communicators' set-up, "
+          "made at each group's first collective)")
+    for name, w in warm.items():
+        print(f"{name} (warm, median of {w['reps']}, CUDA events): "
+              f"{w['ms']:.3f} ms; bound {w['bound_ms']:.3f} ms "
+              f"({w['bound_by']}: {w['flops'] / 1e9:.1f} GFLOP at 67 TFLOP/s "
+              f"fp32, {w['bytes'] / 1e9:.3f} GB at 3.35 TB/s)", flush=True)
+
+    # the Lp-form sweep op (the bench's sweep rung) at config 2's n
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    W = torch.randint(-1, 2, (16384, c.n), generator=gen, device=dev,
+                      dtype=torch.int8).to(torch.float32)
+    Lp = torch.randn((c.n, 24), generator=gen, device=dev) / 10
+    Py = torch.randn(c.n, generator=gen, device=dev)
+    sweep_ms = {}
+    for name in ("score_tile_sqrt", "score_tile_sqrt_bf16"):
+        fn = getattr(kernels, name)
+        out, sweep_ms[name] = timed(
+            torch, lambda fn=fn: fn(W, Lp, Py, 0.7), reps=10, warmup=2)
+        sweep_ms[name + "_out"] = out
+    _, rel = rel_err(torch, sweep_ms.pop("score_tile_sqrt_bf16_out"),
+                     sweep_ms.pop("score_tile_sqrt_out"))
+    print(f"score_tile_sqrt on a 16 384 x {c.n} tile: f32 "
+          f"{sweep_ms['score_tile_sqrt']:.3f} ms, bf16 "
+          f"{sweep_ms['score_tile_sqrt_bf16']:.3f} ms; bf16 rel err {rel:.2e}"
+          " (the JAX package states ~1e-2 for its bf16 policy)", flush=True)
+    check(rel <= 1e-2, f"the bf16 sweep op is off the f32 one: {rel:.2e}")
+    return {"indices": res.indices, "extbic_path": res.extbic_path,
+            "wall_s": wall, "ops": ops, "phases": phases,
+            "sweep_ms": sweep_ms, "warm": warm}
+
+
+def warm_collectives(torch, ep, c, dev) -> dict:
+    """``mmt_psum`` and ``score_and_argmax_from_T`` timed on their own over
+    a ShardedScan of cohort ``c`` (the group open, its communicators made
+    by the am() before): CUDA events, median of several calls, beside the
+    bound of each (FLOPs at the fp32 peak — the products are IEEE fp32 —
+    or bytes at the HBM rate, each input read once)."""
+    from eagleeverything_tpu_torch.models import engine_torch
+    from eagleeverything_tpu_torch.parallel import collectives
+    from eagleeverything_tpu_torch.utils.config import DEFAULT_CONFIG
+    handle = ep.GenoHandle(n=c.n, p=c.p, source="config2",
+                           store_dir=c.store_dir)
+    scan = engine_torch.ShardedScan(
+        engine_torch._make_source(handle, None), DEFAULT_CONFIG, dev)
+    rows, n = scan.Wt.shape
+    _, mmt_ms = timed(torch, lambda: collectives.mmt_psum(scan.Wt,
+                                                          scan.mesh),
+                      reps=5, warmup=1)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    U, _ = torch.linalg.qr(torch.randn((n, n), generator=gen, device=dev))
+    scan.set_eigenbasis(U)
+    q = 16
+    s = torch.rand(n, generator=gen, device=dev) + 0.5
+    Q, _ = torch.linalg.qr(torch.randn((n, q), generator=gen, device=dev))
+    z3 = torch.randn(n, generator=gen, device=dev)
+    mask = scan._mask([])
+    _, sweep_ms = timed(
+        torch, lambda: collectives.score_and_argmax_from_T(
+            scan._T, s, Q, z3, 0.7, mask, scan.mesh), reps=10, warmup=2)
+    out = {}
+    for name, ms, flops, nbytes, reps in (
+            ("mmt_psum", mmt_ms, 2 * rows * n * n, 4 * (rows * n + n * n), 5),
+            ("score_and_argmax_from_T", sweep_ms,
+             2 * rows * n * (q + 1) + 3 * rows * n, 4 * (rows * n + rows), 10)):
+        t_ops = flops / FP32_FLOPS_PER_S * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        out[name] = {"ms": ms, "reps": reps, "flops": flops, "bytes": nbytes,
+                     "bound_ms": max(t_ops, t_bytes),
+                     "bound_by": "operations" if t_ops >= t_bytes
+                     else "bytes"}
+    del scan
+    torch.cuda.empty_cache()
+    return out
+
+
+def rank_job(spec_path: str, out_path: str) -> int:
+    """One rank of phase 17 (``--rank SPEC OUT``, started by
+    :func:`two_rank_phase`): joins the group on the transport the phase
+    chose, runs the sharded scan and the matrix-free scan through ``am``,
+    and writes what it selected, its kernel launches and the transport's
+    cost."""
+    import hashlib
+    import torch
+    import torch.distributed as dist
+    import eagleeverything_tpu_torch as ep
+    from eagleeverything_tpu_torch.ops import packed
+    from eagleeverything_tpu_torch.utils import distributed
+    with open(spec_path) as f:
+        spec = json.load(f)
+    distributed.initialize(os.environ["EAGLE_COORD_ADDR"], 2,
+                           int(os.environ["EAGLE_PROC_ID"]),
+                           backend=spec["transport"])
+    rank = distributed.process_index()
+    out = {"rank": rank}
+
+    def scan(key: str, engine: str, recorder=None) -> dict:
+        job = spec[key]
+        handle = ep.GenoHandle(n=job["n"], p=job["p"], source=key,
+                               store_dir=job["store"])
+        y = np.load(job["y"])
+        log = f"{out_path}.{key}.jsonl"
+        # the device all-reduces (the Krylov steps' K·V blocks, the
+        # sharded sweeps' collectives) counted and timed around the call
+        calls, real = [], dist.all_reduce
+
+        def all_reduce(t, *a, **k):
+            if not t.is_cuda:
+                return real(t, *a, **k)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            res = real(t, *a, **k)
+            ev[1].record()
+            calls.append(ev)
+            return res
+
+        dist.all_reduce = all_reduce
+        try:
+            res, wall, launches = run_counted(
+                torch, packed, lambda: ep.am("y", handle, {"y": y},
+                                             maxit=job["maxit"],
+                                             engine=engine, log_jsonl=log),
+                recorder)
+        finally:
+            dist.all_reduce = real
+        t = np.stack(res.outlier_stats)
+        return {"indices": res.indices, "extbic_path": res.extbic_path,
+                "t_sha256": hashlib.sha256(t.tobytes()).hexdigest(),
+                "wall_s": wall, "launches": launches,
+                "allreduces": len(calls),
+                "allreduce_ms": sum(a.elapsed_time(b) for a, b in calls),
+                # only rank 0 writes the scan log
+                "phases": (scan_phases(read_log(log)) if os.path.exists(log)
+                           else {})}
+
+    out["sharded"] = scan("sharded", "sharded")
+    rec = LaunchRecorder(packed, keep=lambda name, r: name != "kernel_matvec")
+    out["matfree"] = scan("matfree", "matfree", rec)
+    out["matfree"]["widths"] = {name: {str(r): c for r, c in w.items()}
+                                for name, w in rec.widths.items()}
+    out["matfree"]["rel_err"] = kept_checks(
+        torch, packed, rec.kept, f"rank {rank}'s matrix-free am")
+    out["matfree"]["checked"] = len(rec.kept)
+    distributed.shutdown()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def two_rank_phase(torch, tmp: str, cfg2: dict, world1: dict, main: dict,
+                   timeout: float) -> dict:
+    """Phase 17: two ranks of this script on the one card, over gloo with
+    the CUDA tensors handed to it (NCCL refuses two ranks on one device):
+    ``am(engine="sharded")`` on phase 8's cohort (about 50 000 SNPs a
+    rank) and ``am(engine="matfree")`` through MultiHostTiledScan on phase
+    6's cohort (131 072 SNPs a rank). Both ranks must exit 0 with equal
+    bits, phase 16's and phase 6's selections. Two ranks on one card
+    measure correctness and the transport's cost, not scaling."""
+    transport = "gloo"
+    c2, c6 = cfg2["cohort"], main["cohort"]
+    phase(f"17. two ranks on the one card (transport: {transport}, the CUDA "
+          f"tensors handed to it): am(engine='sharded') at {c2.n} x {c2.p}, "
+          f"am(engine='matfree') at {c6.n} x {c6.p}")
+    spec = {"transport": transport}
+    for key, c, maxit in (("sharded", c2, 10), ("matfree", c6, 3)):
+        y = os.path.join(tmp, f"rank_{key}_y.npy")
+        np.save(y, c.y)
+        spec[key] = {"store": c.store_dir, "n": c.n, "p": c.p, "y": y,
+                     "maxit": maxit}
+    spec_path = os.path.join(tmp, "ranks.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    addr = f"127.0.0.1:{free_port()}"
+    procs, logs, outs = [], [], []
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        for r in (0, 1):
+            outs.append(os.path.join(tmp, f"rank{r}.json"))
+            logs.append(open(os.path.join(tmp, f"rank{r}.log"), "w"))
+            env = dict(os.environ, PYTHONPATH=ROOT, EAGLE_COORD_ADDR=addr,
+                       EAGLE_NUM_PROCS="2", EAGLE_PROC_ID=str(r),
+                       OMP_NUM_THREADS="4")
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--rank",
+                 spec_path, outs[-1]], cwd=ROOT, env=env, stdout=logs[-1],
+                stderr=subprocess.STDOUT))
+        deadline = time.perf_counter() + timeout
+        for pr in procs:
+            try:
+                pr.wait(timeout=max(deadline - time.perf_counter(), 1.0))
+            except subprocess.TimeoutExpired:
+                break
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+            pr.wait()
+        for f in logs:
+            f.close()
+    wall = time.perf_counter() - t0
+    texts = []
+    for r, pr in enumerate(procs):
+        with open(os.path.join(tmp, f"rank{r}.log")) as f:
+            texts.append(f.read())
+        print(f"-- rank {r} (rc {pr.returncode}), the end of its log:\n"
+              + texts[-1][-1500:], flush=True)
+    for r, pr in enumerate(procs):
+        check(pr.returncode == 0, f"rank {r} of phase 17 exited "
+              f"{pr.returncode}")
+    res = []
+    for path in outs:
+        with open(path) as f:
+            res.append(json.load(f))
+    for key in ("sharded", "matfree"):
+        for field in ("indices", "extbic_path", "t_sha256"):
+            check(res[0][key][field] == res[1][key][field],
+                  f"the ranks' {key} {field} differ")
+        for r in (0, 1):
+            o = res[r][key]
+            ph = " ".join(f"{k} " + "/".join(f"{w:.2f}" for w in v)
+                          for k, v in o["phases"].items())
+            print(f"rank {r} {key}: am() {o['wall_s']:.1f} s ({ph}); "
+                  f"{o['allreduces']} device all-reduces, "
+                  f"{o['allreduce_ms']:.1f} ms; launches {o['launches']}",
+                  flush=True)
+    for r in (0, 1):
+        o = res[r]["matfree"]
+        print(f"rank {r}: {o['checked']} first launches (a kernel at a "
+              "width) held against the plain version, worst rel err "
+              + ", ".join(f"{k} {v:.2e}" for k, v in o["rel_err"].items()),
+              flush=True)
+    sh, mf = res[0]["sharded"], res[0]["matfree"]
+    print(f"sharded selected {sh['indices']} (phase 16: "
+          f"{world1['indices']}); matrix-free selected {mf['indices']} "
+          f"(phase 6: {main['indices']}); phase wall {wall:.1f} s "
+          f"(process start and both scans)", flush=True)
+    check(sh["indices"] == world1["indices"],
+          "two ranks' sharded scan selected other SNPs than phase 16")
+    gap_sh = rel_gap(sh["extbic_path"], world1["extbic_path"])
+    check(gap_sh <= 1e-6, f"two ranks' sharded extBIC off: {gap_sh:.2e}")
+    check(mf["indices"] == main["indices"],
+          "two ranks' matrix-free scan selected other SNPs than phase 6")
+    gap_mf = rel_gap(mf["extbic_path"], main["extbic_path"])
+    check(gap_mf <= 1e-3, f"two ranks' matrix-free extBIC off: {gap_mf:.2e}")
+    check(set(mf["indices"]) <= set(int(q) for q in c6.qtl_idx),
+          f"two ranks selected SNPs {mf['indices']} that are not planted")
+    for r in (0, 1):
+        for name in KERNELS:
+            check(res[r]["matfree"]["launches"][name] >= 1,
+                  f"{name} never launched on rank {r}")
+        check(res[r]["matfree"]["allreduces"] >= 1,
+              f"rank {r}'s collective device Krylov did not engage")
+    print(f"extBIC gaps: sharded {gap_sh:.2e} (to phase 16), matrix-free "
+          f"{gap_mf:.2e} (to phase 6)", flush=True)
+    return {"ranks": res, "transport": transport, "wall_s": wall,
+            "gap_sharded": gap_sh, "gap_matfree": gap_mf}
 
 
 def legs_phase(legs: CpuLegs, cards: dict, timeout: float) -> dict:
@@ -1677,13 +2028,32 @@ def run(args) -> None:
                           "am_multi": multi["card"],
                           "fpr4am": fpr_mf["card"]},
                    LIMIT_S - (time.perf_counter() - t_start))
+        # the multi-process phases run once the CPU legs are done, so that
+        # their host work does not compete with them
+        world1 = world1_phase(torch, ep, packed, kernels, tmp, cfg2, dev)
+        ranks = two_rank_phase(
+            torch, tmp, cfg2, world1, main,
+            min(600.0, LIMIT_S - (time.perf_counter() - t_start)))
 
-    phase("16. kernels")
+    phase("18. kernels")
     by_path = {"am_matfree": main["launches"],
                "summary_am_matfree": flow["summary_matfree_launches"],
                "am_matfree_zmat": zmat["launches"],
                "am_multi_matfree": multi["launches"],
                "fpr4am_matfree": fpr_mf["launches"]}
+    for r, out in enumerate(ranks["ranks"]):
+        by_path[f"am_matfree_rank{r}_of_2"] = out["matfree"]["launches"]
+    w1 = world1["warm"]
+    print(f"world 1 (NCCL): am(engine='sharded') {world1['wall_s']:.1f} s, "
+          f"mmt_psum {w1['mmt_psum']['ms']:.3f} ms, "
+          "score_and_argmax_from_T "
+          f"{w1['score_and_argmax_from_T']['ms']:.3f} ms a call (warm); "
+          f"two ranks on one card ({ranks['transport']}): "
+          + ", ".join(f"rank {o['rank']} sharded {o['sharded']['wall_s']:.1f}"
+                      f" s, matrix-free {o['matfree']['wall_s']:.1f} s "
+                      f"({o['matfree']['allreduces']} all-reduces, "
+                      f"{o['matfree']['allreduce_ms']:.0f} ms)"
+                      for o in ranks["ranks"]))
     print("matrix-free walls: am() " + f"{main['wall_s']:.1f} s (phases "
           + ", ".join(f"{k} " + " / ".join(f"{w:.2f}" for w in v)
                       for k, v in main["phases"].items())
@@ -1713,6 +2083,8 @@ def run(args) -> None:
             "launches_by_path": {k: v[name] for k, v in by_path.items()},
             "summary_am_matfree_rel_err":
                 flow["summary_matfree_rel_err"][name],
+            "two_rank_rel_err": max(o["matfree"]["rel_err"][name]
+                                    for o in ranks["ranks"]),
             "max_abs_err": max(v["max_abs_err"] for v in by_r.values()),
             "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
@@ -1742,6 +2114,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--cpu-legs", nargs=2, metavar=("SPEC", "OUT"),
                     help=argparse.SUPPRESS)
+    ap.add_argument("--rank", nargs=2, metavar=("SPEC", "OUT"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     try:
         import torch
@@ -1762,6 +2136,13 @@ def main() -> int:
     if args.cpu_legs:
         # the CPU-legs process a run starts (CpuLegs): CPU work only
         return cpu_legs(*args.cpu_legs)
+    if args.rank:
+        # one of the two ranks phase 17 starts
+        try:
+            return rank_job(*args.rank)
+        except SmokeFailure as e:
+            print(f"FAIL: {e}", flush=True)
+            return 1
     try:
         run(args)
     except SmokeFailure as e:

@@ -68,9 +68,12 @@ def am(
       engine: "auto" (the exact eigenbasis engine up to
         ``config.matfree_min_n`` individuals, "matfree" above it, where the
         n×n kernel no longer fits), "jax" (the exact engine, under the JAX
-        package's name so one call runs on both packages), "matfree" or
-        "oracle". "sharded" (multi-device) is not in this package yet and
-        raises NotImplementedError.
+        package's name so one call runs on both packages), "sharded" (the
+        exact engine SNP-sharded over the (ind, snp) mesh of the ranks,
+        ``config.mesh_shape``; one process runs it on its one device),
+        "matfree" or "oracle". In a multi-process run (utils/distributed)
+        every rank calls ``am`` alike; the matrix-free engine then holds
+        each rank's SNP range (engine_torch.MultiHostTiledScan).
       ckpt_dir, resume: MMt/eigenbasis cache and per-iteration scan state
         (exact and matrix-free engines); ``resume`` restarts from the last
         accepted marker.
@@ -83,11 +86,6 @@ def am(
     if engine == "auto":
         n_ind = prep.handle.n
         engine = "matfree" if n_ind > config.matfree_min_n else "jax"
-    if engine == "sharded":
-        raise NotImplementedError(
-            "engine 'sharded': multi-device runs are not in the PyTorch "
-            "port yet (ROADMAP.md queue 1 item 9); use engine='jax' on one "
-            "device")
     if engine == "oracle":
         geno_raw = prep.handle.materialize()
         if prep.keep_individuals is not None:
@@ -96,21 +94,23 @@ def am(
             prep.y, prep.X0, geno_raw, maxit=maxit, fixit=fixit,
             lam_ebic=lam, Z=prep.Z, quiet=quiet,
         )
-    elif engine == "jax":
+    elif engine in ("jax", "sharded"):
         from eagleeverything_tpu_torch.models import engine_torch
         res = engine_torch.forward_select(
             prep.y, prep.X0, prep.handle, maxit=maxit, fixit=fixit,
             lam_ebic=lam, Z=prep.Z, quiet=quiet, config=config,
             keep_records=prep.keep_individuals, ckpt_dir=ckpt_dir,
             resume=resume, log_jsonl=log_jsonl, device=dev,
+            sharded=(engine == "sharded"),
         )
     elif engine == "matfree":
         # biobank n-scale mode: K never materialized — CG/SLQ REML and the
         # two-stage probe/exact score sweep (docs/design_biobank_scale.md)
-        # over the device-resident packed stack
+        # over the device-resident packed stack (each rank's SNP range in a
+        # multi-process run: the kernel matvec sums over the ranks)
         from eagleeverything_tpu_torch.models import bigscan, engine_torch
         src = engine_torch._make_source(prep.handle, prep.keep_individuals)
-        backend = engine_torch.TiledScan(src, config, dev)
+        backend = engine_torch.scan_backend(src, config, dev)
         res = bigscan.forward_select_matfree(
             prep.y, prep.X0, backend, maxit=maxit, fixit=fixit,
             lam_ebic=lam, quiet=quiet, Z=prep.Z, log_jsonl=log_jsonl,
@@ -219,7 +219,7 @@ def am_multi(
         # union Krylov basis an iteration for every trait (BASELINE
         # config 5 at config 3's n)
         from eagleeverything_tpu_torch.models import bigscan
-        backend = engine_torch.TiledScan(
+        backend = engine_torch.scan_backend(
             engine_torch._make_source(handle, keep_idx), config, dev)
         results = bigscan.forward_select_matfree_multi(
             ys_full[:, keep], X_full[keep], backend,

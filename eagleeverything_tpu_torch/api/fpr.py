@@ -66,7 +66,7 @@ def fpr4am(
     n = y.shape[0]
 
     src = engine_torch._make_source(prep.handle, prep.keep_individuals)
-    backend = engine_torch.TiledScan(src, config, dev)
+    backend = engine_torch.scan_backend(src, config, dev)
     p = src.p
     if p < 2:
         raise ValueError(

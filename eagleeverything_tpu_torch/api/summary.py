@@ -54,7 +54,7 @@ def summary_am(
         engine = "matfree" if src.n > config.matfree_min_n else "exact"
     if engine not in ("exact", "matfree"):
         raise ValueError(f"unknown summary engine {engine!r}")
-    backend = engine_torch.TiledScan(src, config, dev)
+    backend = engine_torch.scan_backend(src, config, dev)
 
     idx = list(res.indices)
     Wcols = np.column_stack(

@@ -10,6 +10,10 @@ exported API 1:1:
   gui       [--host H --port P --no-browser]
 
 ``am``, ``fpr4am`` and ``gui`` run on CUDA unless given ``--device cpu``.
+A multi-process run starts one process a card, each with EAGLE_COORD_ADDR
+(rank 0's host:port), EAGLE_NUM_PROCS and EAGLE_PROC_ID set
+(utils/distributed); ``--engine sharded`` then shards the exact engine over
+them, and the matrix-free engine holds each rank's SNP range.
 """
 
 from __future__ import annotations
@@ -93,6 +97,8 @@ def main(argv=None) -> int:
     fpr_p.add_argument("--seed", type=int, default=0)
 
     args = ap.parse_args(argv)
+    from eagleeverything_tpu_torch.utils.distributed import maybe_initialize
+    maybe_initialize()  # a multi-process run when EAGLE_COORD_ADDR is set
     try:
         return _run(args)
     except (KeyError, ValueError, FileNotFoundError,

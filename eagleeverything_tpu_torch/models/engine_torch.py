@@ -1,10 +1,10 @@
 """The scan backend over the resident 2-bit packed stack, and the exact
 eigenbasis engine's forward selection.
 
-Counterpart of the single-device part of the JAX package's
-models/engine_jax.py. The whole genotype matrix lives on the device as one
-int32 packed stack (four genotypes a byte, sixteen a word). Two engines
-read it:
+Counterpart of the JAX package's models/engine_jax.py. The whole genotype
+matrix (in a multi-process run: the rank's SNP range, MultiHostTiledScan)
+lives on the device as one int32 packed stack (four genotypes a byte,
+sixteen a word). Two engines read it:
 
 - the matrix-free engine (models/bigscan), whose every pass over the stack
   is one of the two hand-written kernels of ops/packed: ``kernel_matvec``
@@ -18,7 +18,9 @@ read it:
   stack is unpacked a tile at a time into f32 W for the torch ops of
   ops/kernels — MMt = WᵀW once, one eigendecomposition of K, T = W·U once
   (cached on the device when it fits), then each sweep scores every SNP
-  from T with skinny products.
+  from T with skinny products. Its SNP-sharded form (:class:`ShardedScan`,
+  ``am(engine="sharded")``) keeps a recoded W block a rank on the (ind,
+  snp) mesh of the ranks and sweeps it with parallel/collectives.
 
 The decision path stays on the host in float64; the device works in IEEE
 fp32. The CG solve keeps its X/R/P block on the device and the host reads
@@ -37,12 +39,16 @@ from typing import Iterator, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from eagleeverything_tpu_torch.api.read import GenoHandle
 from eagleeverything_tpu_torch.io import genostore
 from eagleeverything_tpu_torch.models import reml_core
 from eagleeverything_tpu_torch.models.oracle import AMResult
 from eagleeverything_tpu_torch.ops import kernels, packed
+from eagleeverything_tpu_torch.parallel import collectives
+from eagleeverything_tpu_torch.parallel import mesh as meshlib
+from eagleeverything_tpu_torch.utils import distributed
 from eagleeverything_tpu_torch.utils.config import DEFAULT_CONFIG, EagleConfig
 
 MISSING = -9
@@ -62,11 +68,27 @@ class TileSource:
     def tiles(self, tile_snps: int) -> Iterator[tuple[int, np.ndarray]]:
         raise NotImplementedError
 
+    def tiles_in(self, lo: int, hi: int, tile_snps: int
+                 ) -> Iterator[tuple[int, np.ndarray]]:
+        """Tiles restricted to the SNP range [lo, hi) (a rank's own rows in
+        a multi-process run). This form clips the full stream; a store
+        overrides it so that no foreign shard is opened."""
+        for j0, tile in self.tiles(tile_snps):
+            a, b = max(j0, lo), min(j0 + tile.shape[0], hi)
+            if a < b:
+                yield a, tile[a - j0 : b - j0]
+
     def packed_tiles(self, tile_snps: int
                      ) -> Iterator[tuple[int, np.ndarray]]:
         """(offset, uint8 (b, ⌈n/4⌉)) 2-bit tiles in the store's byte
         layout — by default the int8 tiles packed on the host."""
         for j0, tile in self.tiles(tile_snps):
+            yield j0, genostore.pack2(tile)
+
+    def packed_tiles_in(self, lo: int, hi: int, tile_snps: int
+                        ) -> Iterator[tuple[int, np.ndarray]]:
+        """:meth:`packed_tiles` restricted to the SNP range [lo, hi)."""
+        for j0, tile in self.tiles_in(lo, hi, tile_snps):
             yield j0, genostore.pack2(tile)
 
     def column(self, j: int) -> np.ndarray:
@@ -102,15 +124,58 @@ class StoreTileSource(TileSource):
                 tile = tile[:, self._keep]
             yield j0, tile
 
+    def tiles_in(self, lo: int, hi: int, tile_snps: int):
+        """Range-restricted tiles: only the shards that intersect [lo, hi)
+        are opened (a rank reads its own shard files only)."""
+        st = self._store
+        for k in range(st.n_shards):
+            s0, s1 = st.shard_offsets[k], st.shard_offsets[k + 1]
+            if s1 <= lo or s0 >= hi:
+                continue
+            raw = st._shard_raw(k)
+            for t0 in range(max(s0, lo), min(s1, hi), tile_snps):
+                t1 = min(t0 + tile_snps, s1, hi)
+                tile = genostore._decode(np.asarray(raw[t0 - s0 : t1 - s0]),
+                                         st.n, st.packed)
+                yield t0, tile if self._keep is None else tile[:, self._keep]
+
     def packed_tiles(self, tile_snps: int):
         """A 2-bit store with every individual kept ships its raw bytes."""
         if self._store.packed and self._keep is None:
             return self._store.iter_raw_tiles(tile_snps)
         return super().packed_tiles(tile_snps)
 
+    def packed_tiles_in(self, lo: int, hi: int, tile_snps: int):
+        if self._store.packed and self._keep is None:
+            return self._store.iter_raw_tiles_in(lo, hi, tile_snps)
+        return super().packed_tiles_in(lo, hi, tile_snps)
+
     def column(self, j: int) -> np.ndarray:
         col = self._store.column(j)
         return col if self._keep is None else col[self._keep]
+
+
+class RangeTileSource(TileSource):
+    """A base source restricted to the SNP range [lo, hi), offsets from 0:
+    a rank's slice of the genotype matrix in a multi-process run (store
+    shard ↔ rank locality)."""
+
+    def __init__(self, base: TileSource, lo: int, hi: int):
+        self.base, self.lo, self.hi = base, lo, hi
+        self.n = base.n
+        self.p = hi - lo
+
+    def tiles(self, tile_snps: int):
+        for j0, tile in self.base.tiles_in(self.lo, self.hi, tile_snps):
+            yield j0 - self.lo, tile
+
+    def packed_tiles(self, tile_snps: int):
+        for j0, raw in self.base.packed_tiles_in(self.lo, self.hi,
+                                                 tile_snps):
+            yield j0 - self.lo, raw
+
+    def column(self, j: int) -> np.ndarray:
+        return self.base.column(self.lo + j)
 
 
 def _make_source(handle: GenoHandle, keep: Optional[np.ndarray]) -> TileSource:
@@ -278,27 +343,26 @@ def stack_from_jax(Wp: np.ndarray, means: np.ndarray, n: int, p: int,
     return W_t, m_t
 
 
-def _kernel_apply(Wp, means, n: int, V: torch.Tensor,
+def _kernel_apply(kv, n: int, V: torch.Tensor,
                   z_idx: Optional[torch.Tensor]) -> torch.Tensor:
-    """K·V (one launch each of packed_dot and packed_tdot); with the
-    record → individual index ``z_idx`` of a 0/1 incidence Z, the
-    record-space Z·K·Zᵀ·V: Zᵀ·V is a segment sum (``index_add_``, atomics
-    on CUDA, so not bitwise repeatable with repeated records) and Z·U a
-    gather."""
+    """K·V by ``kv`` (the device kernel matvec, TiledScan._device_kv: one
+    launch each of packed_dot and packed_tdot); with the record →
+    individual index ``z_idx`` of a 0/1 incidence Z, the record-space
+    Z·K·Zᵀ·V: Zᵀ·V is a segment sum (``index_add_``, atomics on CUDA, so
+    not bitwise repeatable with repeated records) and Z·U a gather."""
     if z_idx is None:
-        return packed.kernel_matvec(Wp, V, means, n)
+        return kv(V)
     Vi = torch.zeros((n, V.shape[1]), dtype=V.dtype,
                      device=V.device).index_add_(0, z_idx, V)
-    return packed.kernel_matvec(Wp, Vi, means, n)[z_idx]
+    return kv(Vi)[z_idx]
 
 
-def _cg_step(Wp, means, n: int, X, R, P, rs, thresh, delta, s0: float,
-             z_idx: Optional[torch.Tensor] = None):
-    """One CG iteration on H = K/s0 + δI (record space with ``z_idx``)
-    with the block state on the device; converged columns are frozen
-    (α = β = 0)."""
+def _cg_step(matvec, X, R, P, rs, thresh, delta):
+    """One CG iteration on H = matvec + δI (``matvec`` applies K/s0, in
+    record space with a Zmat) with the block state on the device;
+    converged columns are frozen (α = β = 0)."""
     active = rs > thresh
-    HP = _kernel_apply(Wp, means, n, P, z_idx) / s0 + delta * P
+    HP = matvec(P) + delta * P
     pHp = torch.sum(P * HP, dim=0)
     zero = torch.zeros_like(rs)
     alpha = torch.where(active & (pHp > 0), rs / pHp.clamp(min=1e-30), zero)
@@ -335,6 +399,15 @@ def _lanczos_step(matvec, basis: torch.Tensor, V: torch.Tensor,
     Vn = torch.where(ok[None, :], Wv / beta.clamp(min=1e-30)[None, :],
                      torch.zeros_like(Wv))
     return alpha, beta, Vn
+
+
+def _ieee_fp32() -> None:
+    """IEEE fp32 on the card: no TF32 in any matmul or convolution (the
+    kernels, the exact engine's products and the decision path's inputs
+    are full fp32)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
 
 
 class TiledScan:
@@ -377,14 +450,12 @@ class TiledScan:
                     f"SNPs takes {packed_bytes / 1e9:.3f} GB, more than the "
                     f"{free / 1e9:.3f} GB free of {total / 1e9:.3f} GB on "
                     f"{self.device}")
-            # IEEE fp32 on the card: no TF32 in any matmul or convolution
-            # (the kernels, the exact engine's products and the decision
-            # path's inputs are full fp32)
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
-            torch.set_float32_matmul_precision("highest")
+            _ieee_fp32()
         self._pstack: Optional[torch.Tensor] = None
         self._pmeans: Optional[torch.Tensor] = None
+        self._score = (kernels.score_tile_sqrt_bf16
+                       if config.compute_dtype == "bfloat16"
+                       else kernels.score_tile_sqrt)
 
     def _packed_stack(self) -> torch.Tensor:
         """The whole source as ONE device-resident (p, ⌈⌈n/4⌉/4⌉) int32
@@ -424,6 +495,12 @@ class TiledScan:
         return self._to_host(packed.kernel_matvec(
             Wp, self._to_device(V), self._pmeans, self.src.n))
 
+    def _device_kv(self, V: torch.Tensor) -> torch.Tensor:
+        """MMt·V on the device, V (n, r) a device tensor: the unit of every
+        device CG and Lanczos step."""
+        return packed.kernel_matvec(self._packed_stack(), V, self._pmeans,
+                                    self.src.n)
+
     def _h_apply_host(self, X: np.ndarray, delta, s0: float,
                       z_idx: Optional[np.ndarray] = None) -> np.ndarray:
         """H·X for warm-start residuals — record space when a Zmat index is
@@ -455,8 +532,11 @@ class TiledScan:
         r = B.shape[1]
         if x0 is not None and x0.shape != B.shape:
             x0 = None
-        Wp = self._packed_stack()
         zi = self._z_index(z_idx)
+
+        def matvec(V):
+            return _kernel_apply(self._device_kv, self.src.n, V, zi) / s0
+
         Bp = _pad_cols8(B)
         r_pad = Bp.shape[1]
         bn2 = np.maximum(np.sum(Bp.astype(np.float32) ** 2, axis=0), 1e-30)
@@ -491,8 +571,7 @@ class TiledScan:
                 else:
                     since = 0
                 floor = np.minimum(floor, rs_h)
-            Xd, Rd, Pd, rs = _cg_step(Wp, self._pmeans, self.src.n, Xd, Rd,
-                                      Pd, rs, thresh, dlt, float(s0), zi)
+            Xd, Rd, Pd, rs = _cg_step(matvec, Xd, Rd, Pd, rs, thresh, dlt)
             self.stack_passes += 1
         return x0 + self._to_host(Xd)[:, :r]
 
@@ -510,12 +589,10 @@ class TiledScan:
         column-major, so reorthogonalisation and every later apply are
         batched products a column)."""
         m = min(m, Z.shape[0])
-        Wp = self._packed_stack()
         zi = self._z_index(z_idx)
-        means, n_ind = self._pmeans, self.src.n
 
         def matvec(V):
-            return _kernel_apply(Wp, means, n_ind, V, zi) / s0
+            return _kernel_apply(self._device_kv, self.src.n, V, zi) / s0
 
         Zd = self._to_device(_pad_cols8(Z))
         n_rows, r = Zd.shape
@@ -616,6 +693,30 @@ class TiledScan:
                  out[:, t * w + 1 + q8], out[:, t * w + 2 + q8])
                 for t, qt in enumerate(q_list)]
 
+    def sweep(self, Lp: np.ndarray, Py: np.ndarray,
+              sigma2_g: float) -> np.ndarray:
+        """Score every SNP from the projector factor Lp (P̃ = Lp·Lpᵀ, (n,
+        m)) and P̃y over the W tiles (kernels.score_tile_sqrt, or its bf16
+        form under the bfloat16 policy)."""
+        Lp_d, Py_d = self._to_device(Lp), self._to_device(Py)
+        s2g = torch.tensor(sigma2_g, dtype=torch.float32, device=self.device)
+        out = torch.empty(self.src.p, dtype=torch.float32, device=self.device)
+        for j0, w in self._device_tiles():
+            out[j0 : j0 + w.shape[0]] = self._score(w, Lp_d, Py_d, s2g)
+        return self._to_host(out)
+
+    def sweep_batched(self, Lp: np.ndarray, Py: np.ndarray,
+                      sigma2_g: np.ndarray) -> np.ndarray:
+        """:meth:`sweep` for R projector factors in one pass over the
+        tiles: Lp (R, n, m), Py (R, n), σ²_g (R,) → t (R, p)."""
+        Lp_d, Py_d, s2g = (self._to_device(a) for a in (Lp, Py, sigma2_g))
+        out = torch.empty((Lp_d.shape[0], self.src.p), dtype=torch.float32,
+                          device=self.device)
+        for j0, w in self._device_tiles():
+            out[:, j0 : j0 + w.shape[0]] = kernels.score_tile_batched(
+                w, Lp_d, Py_d, s2g)
+        return self._to_host(out)
+
     def column_f64(self, j: int) -> np.ndarray:
         """The f64 recoded W column for SNP j (reference:
         ``extract_geno_rcpp``, SURVEY.md §3.3)."""
@@ -710,6 +811,194 @@ class TiledScan:
         return self._to_host(out)
 
 
+class MultiHostTiledScan(TiledScan):
+    """The multi-process backend (BASELINE config 4: biobank n over several
+    cards), one rank a card.
+
+    Each rank holds ONLY its SNP range [lo, hi) as its resident packed
+    stack (store shard ↔ rank locality: a split store's foreign shards are
+    never opened), and the primitives compose across ranks:
+
+    - ``kernel_matvec`` and ``compute_K``: the rank's partial, summed over
+      the ranks in process order on the host (utils/distributed, f64);
+    - the device CG and Lanczos: each step's K·V is the rank's K1/K2
+      partial on its own stack, summed on the device by one
+      ``all_reduce`` of the (n, r) f32 block (counted in
+      ``device_allreduces``) before the step goes on — the JAX package's
+      GSPMD program over a global dense W, here with each rank's 2-bit
+      stack. Every later decision reads the reduced block, so every rank
+      takes it alike;
+    - ``sweep_dots`` and the stat rows stay LOCAL (the matrix-free sweep
+      gathers only what it needs); the ``sweep*`` forms gather their rows
+      into the global statistic vector;
+    - ``column_f64``: the owning rank reads the column, the others send
+      zeros, one f64 all-reduce.
+
+    Every method that communicates is a collective: every rank calls it,
+    with the same arguments."""
+
+    def __init__(self, src: TileSource, config: EagleConfig,
+                 device: torch.device):
+        self.p_global = src.p
+        self.global_src = src
+        self.snp_range = distributed.process_snp_range(src.p)
+        self.local_sizes = distributed.local_snp_sizes(src.p)
+        self.device_allreduces = 0
+        super().__init__(RangeTileSource(src, *self.snp_range), config,
+                         device)
+
+    def kernel_matvec(self, V: np.ndarray) -> np.ndarray:
+        return distributed.allreduce_sum_f64(super().kernel_matvec(V))
+
+    def compute_K(self) -> np.ndarray:
+        return distributed.allreduce_sum_f64(super().compute_K())
+
+    def _device_kv(self, V: torch.Tensor) -> torch.Tensor:
+        KV = super()._device_kv(V)
+        dist.all_reduce(KV)
+        self.device_allreduces += 1
+        return KV
+
+    def column_f64(self, j: int) -> np.ndarray:
+        lo, hi = self.snp_range
+        if lo <= j < hi:
+            col = _impute_column_f64(self.src.column(j - lo))
+        else:
+            col = np.zeros(self.src.n, dtype=np.float64)
+        return distributed.allreduce_sum_f64(col)
+
+    def _gather_rows(self, t_local: np.ndarray) -> np.ndarray:
+        return distributed.allgather_concat_f64(t_local, self.local_sizes)
+
+    def sweep(self, Lp, Py, sigma2_g):
+        return self._gather_rows(super().sweep(Lp, Py, sigma2_g))
+
+    def sweep_batched(self, Lp, Py, sigma2_g):
+        return self._gather_rows(super().sweep_batched(Lp, Py, sigma2_g).T).T
+
+    def sweep_eig(self, s, Q, z3, sigma2_g):
+        return self._gather_rows(super().sweep_eig(s, Q, z3, sigma2_g))
+
+    def sweep_eig_batched(self, s, Q, z3, sigma2_g):
+        return self._gather_rows(
+            super().sweep_eig_batched(s, Q, z3, sigma2_g).T).T
+
+
+def scan_backend(src: TileSource, config: EagleConfig,
+                 device) -> TiledScan:
+    """The backend over the packed stack that the matrix-free engine,
+    ``am_multi``, ``summary_am`` and ``fpr4am`` build:
+    :class:`MultiHostTiledScan` in a multi-process run, else
+    :class:`TiledScan`."""
+    if distributed.process_count() > 1:
+        return MultiHostTiledScan(src, config, device)
+    return TiledScan(src, config, device)
+
+
+class ShardedScan:
+    """The SNP-sharded exact engine over the (ind, snp) mesh of the ranks
+    (``am(engine="sharded")``): rank (i, s) holds rows [s·rows, (s+1)·rows)
+    and columns [i·n_loc, (i+1)·n_loc) of the recoded Wt, p padded to
+    snp·128 rows of W = 0 (masked out of every sweep). MMt merges with
+    one all-reduce; each sweep is scored on the shards with one collective
+    argmax (parallel/collectives). At one process without a group it runs
+    the same code on one device."""
+
+    def __init__(self, src: TileSource, config: EagleConfig, device):
+        self.src = src
+        self.config = config
+        self.device = torch.device(device)
+        if self.device.type == "cuda":
+            _ieee_fp32()
+        self.mesh = meshlib.make_mesh(config.mesh_shape, self.device.type)
+        n_snp = self.mesh.shape[meshlib.SNP_AXIS]
+        n_ind = self.mesh.shape[meshlib.IND_AXIS]
+        if src.n % n_ind:
+            raise ValueError(f"{src.n} individuals do not split evenly over "
+                             f"the mesh's {n_ind} ind shards")
+        self.p_pad = meshlib.pad_to_multiple(src.p, n_snp * 128)
+        self.rows = self.p_pad // n_snp
+        self.r0 = self.mesh.coord[meshlib.SNP_AXIS] * self.rows
+        self.n_loc = src.n // n_ind
+        self.c0 = self.mesh.coord[meshlib.IND_AXIS] * self.n_loc
+        dtype = kernels._DTYPES[config.compute_dtype]
+        self.Wt = torch.zeros((self.rows, self.n_loc), dtype=dtype,
+                              device=self.device)
+        hi = min(self.r0 + self.rows, src.p)
+        tile = config.resolve_snp_tile(src.n, self.rows)
+        for j0, g in src.tiles_in(self.r0, hi, tile):
+            w = kernels.recode_impute_tile(
+                torch.from_numpy(np.ascontiguousarray(g)).to(self.device),
+                config.compute_dtype)
+            self.Wt[j0 - self.r0 : j0 - self.r0 + w.shape[0]] = \
+                w[:, self.c0 : self.c0 + self.n_loc]
+        self._T: Optional[torch.Tensor] = None
+
+    def _to_device(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32,
+                               device=self.device)
+
+    def compute_K(self) -> np.ndarray:
+        K = collectives.mmt_psum(self.Wt, self.mesh)
+        return K.cpu().numpy().astype(np.float64)
+
+    def set_eigenbasis(self, U_eff) -> None:
+        """T = Wt·U (the rank's rows, all of U's columns summed over
+        ``ind``), kept as the rank's column slice for the sweeps."""
+        U = torch.as_tensor(U_eff, dtype=torch.float32, device=self.device)
+        n_ind = self.mesh.shape[meshlib.IND_AXIS]
+        if U.shape[1] % n_ind:
+            raise ValueError(f"the eigenbasis' {U.shape[1]} columns do not "
+                             f"split evenly over {n_ind} ind shards")
+        T = kernels.eig_T_tile(self.Wt, U[self.c0 : self.c0 + self.n_loc])
+        T = collectives._all_reduce(T, self.mesh, meshlib.IND_AXIS)
+        self.e_loc = U.shape[1] // n_ind
+        self.e0 = self.mesh.coord[meshlib.IND_AXIS] * self.e_loc
+        self._T = T[:, self.e0 : self.e0 + self.e_loc].contiguous()
+
+    def _mask(self, exclude: Optional[list[int]]) -> torch.Tensor:
+        mask = np.ones(self.p_pad, dtype=np.float32)
+        mask[self.src.p :] = 0.0
+        if exclude:
+            mask[np.asarray(exclude)] = 0.0
+        return self._to_device(mask[self.r0 : self.r0 + self.rows])
+
+    def _result(self, out) -> tuple[np.ndarray, int, float]:
+        t, i_glob, m_glob = out
+        return (t.cpu().numpy()[: self.src.p].astype(np.float64),
+                int(i_glob), float(m_glob))
+
+    def sweep_eig(self, s, Q, z3, sigma2_g,
+                  exclude: Optional[list[int]] = None):
+        """The eigenbasis sweep and its collective argmax: (t (p,), global
+        index, global max)."""
+        sl = slice(self.e0, self.e0 + self.e_loc)
+        s2g = torch.tensor(sigma2_g, dtype=torch.float32, device=self.device)
+        return self._result(collectives.score_and_argmax_from_T(
+            self._T, self._to_device(s[sl]), self._to_device(Q[sl]),
+            self._to_device(z3[sl]), s2g, self._mask(exclude), self.mesh))
+
+    def sweep(self, Lp, Py, sigma2_g, exclude: Optional[list[int]] = None):
+        """The Lp-form sweep (P̃ = Lp·Lpᵀ) and its collective argmax."""
+        sl = slice(self.c0, self.c0 + self.n_loc)
+        s2g = torch.tensor(sigma2_g, dtype=torch.float32, device=self.device)
+        return self._result(collectives.score_and_argmax(
+            self.Wt, self._to_device(Lp[sl]), self._to_device(Py[sl]), s2g,
+            self._mask(exclude), self.mesh))
+
+    def column_f64(self, j: int) -> np.ndarray:
+        """Global SNP column j as f64 W. Multi-process: the rank at ind 0
+        whose rows hold j reads it, the others send zeros, one f64
+        all-reduce (a collective: the same j on every rank)."""
+        if distributed.process_count() == 1:
+            return _impute_column_f64(self.src.column(j))
+        owner = (self.r0 <= j < min(self.r0 + self.rows, self.src.p)
+                 and self.mesh.coord[meshlib.IND_AXIS] == 0)
+        col = (_impute_column_f64(self.src.column(j)) if owner
+               else np.zeros(self.src.n, dtype=np.float64))
+        return distributed.allreduce_sum_f64(col)
+
+
 # ---------------------------------------------------------------------------
 # The exact eigenbasis engine's forward selection (shared decision path)
 # ---------------------------------------------------------------------------
@@ -755,17 +1044,20 @@ def forward_select(
     resume: bool = False,
     log_jsonl: Optional[str] = None,
     device="cuda",
+    sharded: bool = False,
 ) -> AMResult:
     """The AM forward-selection loop on the exact eigenbasis engine
-    (SURVEY.md §4.2), on one device.
+    (SURVEY.md §4.2): on one device, or with ``sharded`` SNP-sharded over
+    the mesh of the ranks (:class:`ShardedScan`, a collective argmax each
+    sweep; every rank runs this loop and takes the same decisions).
 
     With ``ckpt_dir``, the n×n MMt is cached keyed by the genotype source
     (iteration/permutation-invariant, SURVEY.md §6.4), and so is a host
     eigendecomposition; the tiny scan state is checkpointed at every
-    accepted iteration, and ``resume=True`` restarts a killed scan from the
-    last iteration boundary (§6.3)."""
+    accepted iteration, and ``resume=True`` restarts a killed scan (in a
+    multi-process run: the whole job) from the last iteration boundary
+    (§6.3)."""
     from eagleeverything_tpu_torch.utils import checkpoint as ckpt
-    from eagleeverything_tpu_torch.utils import distributed
     from eagleeverything_tpu_torch.utils.logging import Phase, ScanLogger
 
     y = np.asarray(y, dtype=np.float64)
@@ -775,7 +1067,8 @@ def forward_select(
     p = src.p
     logger = ScanLogger(quiet=quiet, jsonl_path=log_jsonl,
                         is_host0=distributed.is_host0())
-    backend = TiledScan(src, config, device)
+    backend = (ShardedScan(src, config, device) if sharded
+               else TiledScan(src, config, device))
 
     K_raw = None
     mmt_key = None
@@ -870,12 +1163,17 @@ def forward_select(
         with Phase(logger, "sweep", items=p):
             s_vec, Qp, z3 = _eig_iteration_state(
                 d_eig, y_star, Xs, fit.delta, qmax)
-            t = backend.sweep_eig(s_vec, Qp, z3, fit.sigma2_g)
-            t[selected] = 0.0
-            cand = int(np.argmax(t))
+            if sharded:
+                t, cand, _ = backend.sweep_eig(s_vec, Qp, z3, fit.sigma2_g,
+                                               exclude=selected)
+            else:
+                t = backend.sweep_eig(s_vec, Qp, z3, fit.sigma2_g)
+                t[selected] = 0.0
+                cand = int(np.argmax(t))
         outlier_stats.append(t)
         if t[cand] <= 0.0:
             # exhausted: every remaining SNP is selected or zero-variance
+            # (the collective argmax returns index 0 with max 0 here)
             break
 
         w_col = backend.column_f64(cand)
@@ -935,8 +1233,9 @@ def forward_select_multi(
     All T traits share one MMt, one kernel eigendecomposition and the T
     tiles; at each iteration the still-active traits' sweeps run as ONE
     batched pass over the tiles. Each trait keeps its own forward-selection
-    state and extBIC stopping."""
-    from eagleeverything_tpu_torch.utils import distributed
+    state and extBIC stopping. In a multi-process run each rank holds its
+    SNP range (:class:`MultiHostTiledScan`: collective K, gathered sweeps,
+    the owning rank's columns), and every rank selects alike."""
     from eagleeverything_tpu_torch.utils.logging import Phase, ScanLogger
 
     ys = np.asarray(ys, dtype=np.float64)
@@ -955,7 +1254,7 @@ def forward_select_multi(
             f"host_eigh_max_n={config.host_eigh_max_n} → "
             f"{8 * n * n / 1e9:.0f} GB f64). Raise config.host_eigh_max_n "
             f"explicitly if the host truly has the memory.")
-    backend = TiledScan(src, config, device)
+    backend = scan_backend(src, config, device)
     with Phase(logger, "mmt", items=p):
         K_raw = backend.compute_K()
     if n != src.n:

@@ -10,16 +10,25 @@ Pallas kernel on this path):
 - :func:`eig_T_tile`: T = W·U, a tile in K's eigenbasis;
 - :func:`score_from_T` (and its batched form): the per-SNP outlier
   statistic t from a T tile, with the guards of
-  :func:`score_from_T_parts` and :func:`t_from_ahat_vara`.
+  :func:`score_from_T_parts` and :func:`t_from_ahat_vara`;
+- :func:`score_tile` and :func:`score_tile_sqrt` (the sweep from the
+  projector P̃ or its factor L, P̃ = L·Lᵀ; :func:`projector_sqrt` makes L),
+  their ``_bf16`` forms and :func:`score_tile_batched`: the Lp-form sweep
+  of ``TiledScan.sweep`` and the collective sweep.
 
 Tiles are ``(b, n)``, one row per SNP. Every product is IEEE fp32 (the
 callers switch TF32 off on CUDA). The ``compute_dtype="bfloat16"`` policy
 rounds W to bf16 and computes with it in f32, as the JAX package does when
-it promotes a bf16 W against an f32 operand; no product runs in bf16.
+it promotes a bf16 W against an f32 operand. Only the ``score_tile*_bf16``
+forms multiply in bf16, as the JAX package's do: both operands rounded to
+bf16, products accumulated in f32 (on CUDA one bf16 GEMM with an f32
+result; on the CPU the same numbers, since a product of two bf16 values is
+exact in f32).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from eagleeverything_tpu_torch.ops import packed
@@ -125,3 +134,72 @@ def score_from_T_batched(T: torch.Tensor, s: torch.Tensor, Q: torch.Tensor,
     temporaries are not multiplied by R."""
     return torch.stack([score_from_T(T, s[r], Q[r], z3[r], sigma2_g[r])
                         for r in range(s.shape[0])])
+
+
+def _bf16_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a·b with both operands rounded to bf16 and an f32 result (the JAX
+    package's ``preferred_element_type=f32`` on bf16 inputs): one bf16
+    GEMM on CUDA; on the CPU the f32 product of the rounded operands, the
+    same numbers up to the order of the f32 sums."""
+    a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    if a.device.type == "cuda":
+        return torch.mm(a16, b16, out_dtype=torch.float32)
+    return a16.to(torch.float32) @ b16.to(torch.float32)
+
+
+def score_tile(Wt: torch.Tensor, Pm: torch.Tensor, Py: torch.Tensor,
+               sigma2_g) -> torch.Tensor:
+    """Outlier statistics t (b,) of one tile from the projector P̃ (n, n):
+    â = Wt·P̃y, var(â) = σ²_g·rowsum(Wt ∘ Wt·P̃), t = â²/var(â) (0 where
+    var ≤ 1e-12: monomorphic or padded SNPs)."""
+    W = Wt.to(torch.float32)
+    ahat = W @ Py
+    vara = sigma2_g * torch.sum(W * (W @ Pm), dim=1)
+    return t_from_ahat_vara(ahat, vara)
+
+
+def score_tile_sqrt(Wt: torch.Tensor, Lp: torch.Tensor, Py: torch.Tensor,
+                    sigma2_g) -> torch.Tensor:
+    """:func:`score_tile` from the projector's factor L (P̃ = L·Lᵀ, (n, m)):
+    var(â)/σ²_g = ‖Lᵀ·w_j‖², so vara = σ²_g·rowsum((Wt·L)²)."""
+    W = Wt.to(torch.float32)
+    ahat = W @ Py
+    B = W @ Lp
+    return t_from_ahat_vara(ahat, sigma2_g * torch.sum(B * B, dim=1))
+
+
+def score_tile_sqrt_bf16(Wt: torch.Tensor, Lp: torch.Tensor,
+                         Py: torch.Tensor, sigma2_g) -> torch.Tensor:
+    """:func:`score_tile_sqrt` with bf16 products (f32 accumulation)."""
+    ahat = _bf16_mm(Wt, Py[:, None])[:, 0]
+    B = _bf16_mm(Wt, Lp)
+    return t_from_ahat_vara(ahat, sigma2_g * torch.sum(B * B, dim=1))
+
+
+def score_tile_bf16(Wt: torch.Tensor, Pm: torch.Tensor, Py: torch.Tensor,
+                    sigma2_g) -> torch.Tensor:
+    """:func:`score_tile` with bf16 products (f32 accumulation); the
+    elementwise Wt ∘ (Wt·P̃) stays f32, as in the JAX package."""
+    ahat = _bf16_mm(Wt, Py[:, None])[:, 0]
+    WtP = _bf16_mm(Wt, Pm)
+    vara = sigma2_g * torch.sum(Wt.to(torch.float32) * WtP, dim=1)
+    return t_from_ahat_vara(ahat, vara)
+
+
+def score_tile_batched(Wt: torch.Tensor, Lp: torch.Tensor, Py: torch.Tensor,
+                       sigma2_g: torch.Tensor) -> torch.Tensor:
+    """:func:`score_tile_sqrt` for R projector factors against one tile:
+    Lp (R, n, m), Py (R, n), σ²_g (R,) → (R, b) (the permutation-batched
+    sweep of fpr4am)."""
+    W = Wt.to(torch.float32)
+    ahat = Py @ W.T
+    B = torch.matmul(W, Lp)
+    vara = sigma2_g[:, None] * torch.sum(B * B, dim=2)
+    return t_from_ahat_vara(ahat, vara)
+
+
+def projector_sqrt(Pm: np.ndarray) -> np.ndarray:
+    """Host f64 symmetric square root L of the PSD projector P̃ (P̃ = L·Lᵀ;
+    eigenvalues clipped at 0)."""
+    w, U = np.linalg.eigh(0.5 * (Pm + Pm.T))
+    return U * np.sqrt(np.clip(w, 0.0, None))[None, :]

@@ -142,14 +142,21 @@ def test_krylov_primitives_match_jax():
 
 
 def test_engines_not_in_this_slice_raise(pallas_store, jax_matfree):
-    """Only the multi-device engine still raises. The routes that raised
-    before this slice now run and agree with the JAX package's scan of
-    the same trait: Zmat on the matrix-free engine (an identity Zmat:
-    K_eff = K, through the record-space device CG and Lanczos) and the
-    matrix-free am_multi, forced and by "auto" above matfree_min_n."""
+    """No engine raises any more. The routes that raised in earlier
+    slices run and agree with the JAX package's scan of the same trait:
+    the SNP-sharded exact engine on one process (against the JAX
+    package's sharded scan, rtol 1e-6), Zmat on the matrix-free engine (an
+    identity Zmat: K_eff = K, through the record-space device CG and
+    Lanczos) and the matrix-free am_multi, forced and by "auto" above
+    matfree_min_n."""
     _, sim = pallas_store
-    with pytest.raises(NotImplementedError, match="multi-device.*item 9"):
-        port.am("y", sim.geno, {"y": sim.y}, engine="sharded", device="cpu")
+    sharded = port.am("y", sim.geno, {"y": sim.y}, engine="sharded",
+                      maxit=3, device="cpu")
+    sharded_ref = ee.am("y", sim.geno, {"y": sim.y}, engine="sharded",
+                        maxit=3)
+    assert sharded.indices == sharded_ref.indices
+    np.testing.assert_allclose(sharded.extbic_path, sharded_ref.extbic_path,
+                               rtol=1e-6)
     runs = {
         "zmat": port.am("y", sim.geno, {"y": sim.y}, Zmat=np.eye(NP_),
                         maxit=3, engine="matfree", device="cpu"),

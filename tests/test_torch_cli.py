@@ -93,13 +93,12 @@ def test_cli_fpr4am_matfree_matches_jax_cli(capsys):
 @pytest.mark.parametrize("argv", [
     ["am", "--trait", "zzz"],
     ["am", "--trait", "y", "--geno", "/does/not/exist"],
-    ["am", "--trait", "y", "--engine", "sharded"],
+    ["am", "--trait", "zzz", "--engine", "sharded"],
     ["fpr4am", "--trait", "zzz", "--engine", "matfree"],
 ])
 def test_cli_error_paths(argv, capsys):
     """As in tests/test_api.py: a bad input ends with rc 2 and a message,
-    on the matrix-free calibration too; the path not yet ported (the
-    multi-device engine) ends the same way."""
+    on the sharded engine and the matrix-free calibration too."""
     base = {"--geno": os.path.join(TUT, "geno.txt"),
             "--pheno": os.path.join(TUT, "pheno.txt")}
     for flag, path in base.items():
