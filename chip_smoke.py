@@ -91,10 +91,23 @@ Phases, each fatal when its check fails:
    extBIC within rtol 1e-3), each rank's kernel launches read around
    exactly that call and the first launch at each width held against the
    plain version; both ranks must exit 0 with equal bits;
-18. a summary line per kernel and the kernels' JSON line (launches by path,
+18. the streamed stack: the host link's rate (a 1 GB page-locked copy,
+   median of 5); phase 6's cohort with a ballast tensor on the card that
+   leaves free only the scan's reserve and half the stack, so the gate
+   streams the stack (at least 3 chunks): its first K·V at r = 8 and 128
+   against the resident K·V (1e-4 of its scale) and against itself (bit
+   for bit), a pass of the ring's copies alone (the link as the stack's
+   pages see it), one streamed K3 pass timed against the resident one and
+   its bound, ``am()`` through the normal entry point (phase 6's selection,
+   extBIC within rtol 1e-3; every pass copies the whole stack) and a
+   second call tracing iteration 1; then BASELINE config 2 on the exact
+   engine under the same kind of ballast (phase 8's selection, extBIC
+   within rtol 1e-6);
+19. a summary line per kernel and the kernels' JSON line (launches by path,
    each read around exactly that call: the matrix-free am, summary_am,
-   am with Zmat, am_multi, fpr4am and each rank of phase 17's matrix-free
-   am), then the last line ``{"ok": true, "device": {...}}``.
+   am with Zmat, am_multi, fpr4am, each rank of phase 17's matrix-free am,
+   and phase 18's streamed matrix-free and exact am), then the last line
+   ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside a checkout, it exits non-zero with no result line.
 """
@@ -336,17 +349,29 @@ class LaunchRecorder:
     """For the length of a ``with`` block, wraps packed_dot, packed_tdot and
     kernel_matvec of ``packed`` (the engine and kernel_matvec itself look
     them up through the module at call time): it counts the calls at each
-    width, and the first call at each width that ``keep`` selects keeps a
-    copy of its operand and its result. It launches nothing of its own,
-    so the launch counts stay the path's."""
+    width, and the first call at each width that ``keep`` selects, on an
+    operand that is not all zero (on a zero block any kernel agrees with
+    its plain version), keeps a copy of its operand and its result. It
+    launches nothing of its own, so the launch counts stay the path's.
+
+    With ``streamed``, the stack a kernel reads is a chunk in a ring slot
+    that the next copy overwrites: the first call at each width and each
+    chunk length (a full chunk, and the shorter last one) is kept, and
+    with it a host copy of its chunk and its means, one a chunk; every
+    kept tensor goes to the host, which the ballast of a streamed run
+    leaves no room for on the card."""
 
     NAMES = ("packed_dot", "packed_tdot", "kernel_matvec")
 
-    def __init__(self, packed, keep=lambda name, r: True):
+    def __init__(self, packed, keep=lambda name, r: True, streamed=False):
         self.packed = packed
         self.keep = keep    # which (name, r) to keep a copy of
-        self.kept = {}      # (name, r) → (Wp, means, n, operand, result)
+        self.streamed = streamed
+        # (name, r), or (name, r, chunk rows) when streamed →
+        # (Wp, means, n, operand, result)
+        self.kept = {}
         self.widths = {name: {} for name in self.NAMES}   # r → calls
+        self._chunks = {}   # (means pointer, rows) → host (Wp, means)
         self._saved = {}
 
     def __enter__(self):
@@ -360,8 +385,19 @@ class LaunchRecorder:
             out = fn(Wp, X, means, n)
             r = X.shape[1]
             self.widths[name][r] = self.widths[name].get(r, 0) + 1
-            if (name, r) not in self.kept and self.keep(name, r):
-                self.kept[(name, r)] = (Wp, means, n, X.clone(), out.clone())
+            key = (name, r, Wp.shape[0]) if self.streamed else (name, r)
+            if key in self.kept or not self.keep(name, r) or not X.any():
+                return out
+            if self.streamed:
+                chunk = (means.data_ptr(), Wp.shape[0])
+                if chunk not in self._chunks:
+                    self._chunks[chunk] = (Wp.to("cpu", copy=True),
+                                           means.to("cpu", copy=True))
+                self.kept[key] = (*self._chunks[chunk], n,
+                                  X.to("cpu", copy=True),
+                                  out.to("cpu", copy=True))
+            else:
+                self.kept[key] = (Wp, means, n, X.clone(), out.clone())
             return out
         return call
 
@@ -932,6 +968,15 @@ def main_path_phase(torch, ep, packed, tmp: str, n: int, p: int, seed: int,
     with IterationTrace(torch, bigscan, 1,
                         os.path.join(tmp, "iteration_trace.json")) as tr:
         ep.am("y", handle, {"y": c.y}, maxit=2, engine="auto")
+    trace = print_trace(tr)
+    return {"launches": launches, "wall_s": wall, "peak_bytes": peak,
+            "indices": res.indices, "extbic_path": res.extbic_path,
+            "cohort": c, "lanczos": lz,
+            "trace": trace, "phases": scan_phases(events)}
+
+
+def print_trace(tr: IterationTrace) -> dict:
+    """Summarise and print the iteration an IterationTrace recorded."""
     trace = {"device_events": 0}
     if tr.done:
         trace = trace_summary(tr.path, tr.wall_s)
@@ -950,10 +995,7 @@ def main_path_phase(torch, ep, packed, tmp: str, n: int, p: int, seed: int,
     else:
         print("the profiler recorded no device events in the traced "
               "iteration (traced: " + str(tr.done) + ")", flush=True)
-    return {"launches": launches, "wall_s": wall, "peak_bytes": peak,
-            "indices": res.indices, "extbic_path": res.extbic_path,
-            "cohort": c, "lanczos": lz,
-            "trace": trace, "phases": scan_phases(events)}
+    return trace
 
 
 def rel_gap(a, b) -> float:
@@ -1748,9 +1790,21 @@ def same_shards(a, b) -> bool:
 
 def kept_checks(torch, packed, kept: dict, what: str) -> dict:
     """Hold each launch a LaunchRecorder kept against the plain version on
-    the same operand, at TOL. Returns {kernel: worst rel err}."""
+    the same operand, at TOL, on the card (a streamed run's host copies
+    are moved there, each chunk once). Returns {kernel: worst rel err}."""
     worst = {}
-    for (name, r), (Wp, means, n, X, got) in sorted(kept.items()):
+    on_card = {}
+
+    def card(t):
+        if t.is_cuda:
+            return t
+        if id(t) not in on_card:
+            on_card[id(t)] = t.cuda()
+        return on_card[id(t)]
+
+    for key, (Wp, means, n, X, got) in sorted(kept.items()):
+        name, r = key[:2]
+        Wp, means, X, got = card(Wp), card(means), X.cuda(), got.cuda()
         ref = getattr(packed, f"{name}_plain")(Wp, X, means, n)
         err, rel = rel_err(torch, got, ref)
         worst[name] = max(worst.get(name, 0.0), rel)
@@ -1985,6 +2039,239 @@ def fpr_parity_phase(torch, ep, parity: dict) -> dict:
     return gaps
 
 
+def link_rate(torch, dev) -> dict:
+    """The host link's rate: one 1 GiB page-locked host → card copy,
+    between CUDA events, median of 5 after one warm-up."""
+    nbytes = 1 << 30
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    card = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    _, ms = timed(torch, lambda: card.copy_(host, non_blocking=True), 5, 1)
+    del host, card
+    torch.cuda.empty_cache()
+    return {"bytes": nbytes, "ms": ms, "gb_s": nbytes / ms / 1e6}
+
+
+@contextlib.contextmanager
+def ballast(torch, dev, free_target: int):
+    """For the length of a ``with`` block, one tensor on the card that
+    leaves ``free_target`` bytes free, counted as the stack gate counts
+    them (engine_torch._stack_plan); yields its size. It is freed, with
+    the allocator's cache, on exit."""
+    torch.cuda.empty_cache()
+    free = (torch.cuda.mem_get_info(dev)[0] + torch.cuda.memory_reserved(dev)
+            - torch.cuda.memory_allocated(dev))
+    check(free > free_target, f"{free / 1e9:.2f} GB free on the card, less "
+          f"than the {free_target / 1e9:.2f} GB the ballast must leave")
+    weight = torch.empty(free - free_target, dtype=torch.uint8, device=dev)
+    try:
+        yield weight.numel()
+    finally:
+        del weight
+        torch.cuda.empty_cache()
+
+
+def gate_target(torch, engine_torch, cfg, store_dir: str, dev,
+                matfree: bool) -> tuple[int, int]:
+    """(free bytes to leave, stack bytes) for a cohort's store: the
+    smallest reserve with which the gate keeps a stack resident (the
+    matrix-free engine's at KRYLOV_COLS, the exact engine's), plus half
+    the stack; the sizes are read from a backend made before any ballast
+    (its stack is not built)."""
+    probe = engine_torch.TiledScan(engine_torch.StoreTileSource(store_dir),
+                                   cfg, dev, matfree)
+    check(probe.stack_mode == "resident", "the stack does not fit the card "
+          "even before the ballast")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    src = probe.src
+    fixed, per_row = engine_torch.stack_reserve(
+        src.n, src.p, cfg, sms, probe.cache_device,
+        engine_torch.KRYLOV_COLS if matfree else 0, probe.tile_snps)
+    stack = probe.stack_info()["stack_bytes"]
+    return fixed + per_row * src.p + stack // 2, stack
+
+
+def stack_events(events: list[dict]) -> tuple[dict, dict]:
+    """The scan log's stack gate (``stack``) and its end-of-scan counters
+    (``stack_passes``; the exact engine logs the gate at its end)."""
+    gate = [e for e in events if e["event"] == "stack"]
+    end = [e for e in events if e["event"] == "stack_passes"]
+    check(len(gate) == 1, "the scan log holds no stack gate")
+    return gate[0], (end[0] if end else gate[0])
+
+
+def streamed_phase(torch, ep, packed, engine_torch, tmp: str, card: str,
+                   main: dict, cfg2: dict, dev) -> dict:
+    """Phase 18: the out-of-core path on the card. A ballast tensor leaves
+    free only the scan's reserve and half the stack, so the gate takes the
+    decision a stack larger than the card forces: phase 6's cohort streams
+    through a ring of chunk buffers on every pass. Its K·V is held to the
+    resident one and to itself, one K3 pass is timed against the resident
+    pass and against the link, am() runs through the normal entry point
+    and a second call traces iteration 1; then BASELINE config 2 runs on
+    the exact engine over a streamed stack."""
+    from eagleeverything_tpu_torch.models import bigscan
+    c, c2 = main["cohort"], cfg2["cohort"]
+    n, p = c.n, c.p
+    phase(f"18. streamed stack: am() on phase 6's cohort ({n} x {p}) and on "
+          f"BASELINE config 2 ({c2.n} x {c2.p}, exact engine), each under a "
+          "ballast that leaves free the scan's reserve and half its stack")
+    print(card)
+    link = link_rate(torch, dev)
+    print(f"host link: 1 GiB page-locked host -> card {link['ms']:.3f} ms "
+          f"(median of 5): {link['gb_s']:.2f} GB/s", flush=True)
+    cfg = ep.EagleConfig()
+    target, stack_bytes = gate_target(torch, engine_torch, cfg, c.store_dir,
+                                      dev, matfree=True)
+
+    # the resident K·V first (the stack cannot stay on the card under the
+    # ballast), timed a pass (CUDA events, median of 5)
+    res = engine_torch.TiledScan(engine_torch.StoreTileSource(c.store_dir),
+                                 cfg, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    kv = {}
+    for r in (8, 128):
+        V = torch.randn((n, r), generator=gen, device=dev)
+        ref, ms = timed(torch, lambda: res._device_kv(V), 5, 1)
+        kv[r] = {"V": V, "ref": ref, "resident_ms": ms}
+    nw = res.nw
+    del res
+    torch.cuda.empty_cache()
+
+    out = {"link": link, "stack_bytes": stack_bytes}
+    with ballast(torch, dev, target) as weight:
+        st = engine_torch.TiledScan(engine_torch.StoreTileSource(c.store_dir),
+                                    cfg, dev)
+        gate = st.stack_info()
+        print(f"ballast {weight / 1e9:.3f} GB; the gate saw "
+              f"{gate['free_bytes'] / 1e9:.3f} GB free for the "
+              f"{stack_bytes / 1e9:.3f} GB stack and its "
+              f"{gate['reserve_bytes'] / 1e9:.3f} GB reserve: {gate['mode']}"
+              f", {gate['chunks']} chunks of {gate['chunk_rows']} rows, "
+              f"{gate['slots']} slots", flush=True)
+        check(gate["mode"] == "streamed" and gate["chunks"] >= 3,
+              f"the gate did not stream the stack in 3 chunks or more: "
+              f"{gate}")
+        for r, k in kv.items():
+            got = st._device_kv(k["V"])     # the first builds the stack
+            again = st._device_kv(k["V"])
+            torch.cuda.synchronize()
+            check(torch.equal(got, again),
+                  f"the streamed K·V is not bitwise repeatable at r={r}")
+            k["err"], k["rel"] = rel_err(torch, got, k["ref"])
+            check(k["rel"] <= TOL, f"the streamed K·V is off the resident "
+                  f"one at r={r}: rel {k['rel']:.3e}")
+            del got, again
+        # the ring's own copies, a pass of them alone: a reading of the
+        # code under test, reported beside the link and not used in the
+        # bound, which takes the link's rate from the 1 GiB copy alone
+        _, copy_ms = timed(torch, lambda: sum(1 for _ in st._stack_chunks()),
+                           5, 1)
+        link["ring_gb_s"] = stack_bytes / copy_ms / 1e6
+        print(f"a pass of the ring's copies alone: {copy_ms:.2f} ms (median "
+              f"of 5), {link['ring_gb_s']:.2f} GB/s, "
+              f"{link['ring_gb_s'] / link['gb_s']:.1%} of the 1 GiB copy's "
+              "rate", flush=True)
+        b_link = stack_bytes / (link["gb_s"] * 1e9) * 1e3
+        for r, k in kv.items():
+            _, ms = timed(torch, lambda: st._device_kv(k["V"]), 5, 0)
+            b_k3 = bound("kernel_matvec", n, p, r, nw)[0]
+            k.update(streamed_ms=ms, bound_ms=max(b_k3, b_link),
+                     bound_by="link" if b_link >= b_k3 else "K3")
+            print(f"K3 at r={r}: streamed {ms:.2f} ms a pass "
+                  f"({stack_bytes / ms / 1e6:.2f} GB/s), resident "
+                  f"{k['resident_ms']:.2f} ms; bound {k['bound_ms']:.2f} ms "
+                  f"(by the {k['bound_by']}: link {b_link:.2f} ms, K3 "
+                  f"{b_k3:.2f} ms), {k['bound_ms'] / ms:.1%} of it; vs "
+                  f"resident: max abs err {k['err']:.3e}, rel "
+                  f"{k['rel']:.3e}; bitwise equal over two calls", flush=True)
+        print(f"pinned stack built in {st.build_s:.2f} s (pinning, the "
+              "store's tiles and one pass for the means)")
+        check(st.h2d_bytes == st.stream_passes * stack_bytes,
+              "the streamed passes did not each copy the whole stack")
+        del st
+        torch.cuda.empty_cache()
+
+        handle = ep.GenoHandle(n=n, p=p, source="cohort",
+                               store_dir=c.store_dir)
+        log = os.path.join(tmp, "streamed.jsonl")
+        rec = LaunchRecorder(packed, streamed=True)
+        res, wall, launches = run_counted(torch, packed, lambda: ep.am(
+            "y", handle, {"y": c.y}, maxit=3, engine="auto", log_jsonl=log),
+            rec)
+        events = read_log(log)
+        gate, end = stack_events(events)
+        phases = scan_phases(events)
+        with IterationTrace(torch, bigscan, 1,
+                            os.path.join(tmp, "streamed_trace.json")) as tr:
+            ep.am("y", handle, {"y": c.y}, maxit=2, engine="auto")
+    trace = print_trace(tr)
+    gap = rel_gap(res.extbic_path, main["extbic_path"])
+    print("am(engine='auto'), streamed: "
+          f"{wall:.1f} s (phase 6: {main['wall_s']:.1f} s); phases "
+          + ", ".join(f"{k} " + " / ".join(f"{w:.2f}" for w in v)
+                      for k, v in phases.items())
+          + f" s; {end['stream_passes']} passes through {gate['chunks']} "
+          f"chunks of {gate['chunk_rows']} rows, "
+          f"{end['h2d_bytes'] / 1e9:.1f} GB copied, "
+          f"{end['h2d_bytes'] / wall / 1e9:.2f} GB/s over the whole scan "
+          f"({end['h2d_bytes'] / wall / 1e9 / link['gb_s']:.1%} of the "
+          f"link); stack built in {gate['build_s']:.2f} s; launches "
+          f"{launches}; selected {res.indices} (phase 6: {main['indices']}),"
+          f" extBIC gap {gap:.2e}", flush=True)
+    check(gate["mode"] == "streamed" and gate["chunks"] >= 3,
+          f"am() did not stream the stack: {gate}")
+    check(end["h2d_bytes"] == end["stream_passes"] * stack_bytes,
+          "am()'s passes did not each copy the whole stack")
+    check(res.indices == main["indices"],
+          "the streamed scan selected other SNPs than phase 6")
+    check(gap <= 1e-3, f"the streamed extBIC is off phase 6's: {gap:.2e}")
+    for name in KERNELS:
+        check(launches[name] >= 1,
+              f"{name} was never launched by the streamed am()")
+    # every width the streamed am() launched each kernel at, on a full
+    # chunk and on the shorter last one, against the plain version
+    last = p - (gate["chunks"] - 1) * gate["chunk_rows"]
+    held = {(key[0], key[2]) for key in rec.kept}
+    kept = kept_checks(torch, packed, rec.kept, "the streamed am()")
+    rec.kept.clear()
+    for name in LaunchRecorder.NAMES:
+        check({(name, gate["chunk_rows"]), (name, last)} <= held,
+              f"{name}: the streamed am()'s launches held against the "
+              f"plain version miss a chunk length ({sorted(held)})")
+    out.update(kv={r: {k: v for k, v in d.items()
+                       if k not in ("V", "ref")} for r, d in kv.items()},
+               wall_s=wall, launches=launches, gate=gate,
+               passes=end["stream_passes"], h2d_bytes=end["h2d_bytes"],
+               phases=phases, trace=trace, gap=gap, kept_rel_err=kept)
+
+    target2, _ = gate_target(torch, engine_torch, cfg, c2.store_dir, dev,
+                             matfree=False)
+    h2 = ep.GenoHandle(n=c2.n, p=c2.p, source="config2",
+                       store_dir=c2.store_dir)
+    log2 = os.path.join(tmp, "streamed_exact.jsonl")
+    with ballast(torch, dev, target2):
+        res2, wall2, launches2 = run_counted(torch, packed, lambda: ep.am(
+            "y", h2, {"y": c2.y}, maxit=10, engine="auto", log_jsonl=log2))
+    gate2, _ = stack_events(read_log(log2))
+    gap2 = rel_gap(res2.extbic_path, cfg2["extbic_path"])
+    print(f"exact am(engine='auto') on config 2, streamed: {wall2:.2f} s "
+          f"(phase 8: {cfg2['wall_s']:.2f} s); {gate2['chunks']} chunks of "
+          f"{gate2['chunk_rows']} rows, {gate2['stream_passes']} passes; "
+          f"selected {res2.indices} (phase 8: {cfg2['indices']}), extBIC "
+          f"gap {gap2:.2e}; packed-stack launches {launches2}", flush=True)
+    check(gate2["mode"] == "streamed", f"config 2 did not stream: {gate2}")
+    check(res2.indices == cfg2["indices"],
+          "the streamed exact scan selected other SNPs than phase 8")
+    check(gap2 <= 1e-6, f"the streamed exact extBIC is off phase 8's: "
+          f"{gap2:.2e}")
+    check(not any(launches2.values()),
+          f"the exact engine launched packed-stack kernels: {launches2}")
+    out.update(exact_wall_s=wall2, exact_launches=launches2, exact_gap=gap2,
+               exact_gate=gate2)
+    return out
+
+
 def run(args) -> None:
     import torch
 
@@ -1997,7 +2284,7 @@ def run(args) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    card_phase(torch)
+    card = card_phase(torch)
     build_phase(build)
     ragged = ragged_phase(torch, packed, dev, args.seed)
     timing = timing_phase(torch, packed, dev, N, P_KERNELS, args.seed)
@@ -2034,8 +2321,10 @@ def run(args) -> None:
         ranks = two_rank_phase(
             torch, tmp, cfg2, world1, main,
             min(600.0, LIMIT_S - (time.perf_counter() - t_start)))
+        streamed = streamed_phase(torch, ep, packed, engine_torch, tmp, card,
+                                  main, cfg2, dev)
 
-    phase("18. kernels")
+    phase("19. kernels")
     by_path = {"am_matfree": main["launches"],
                "summary_am_matfree": flow["summary_matfree_launches"],
                "am_matfree_zmat": zmat["launches"],
@@ -2043,6 +2332,7 @@ def run(args) -> None:
                "fpr4am_matfree": fpr_mf["launches"]}
     for r, out in enumerate(ranks["ranks"]):
         by_path[f"am_matfree_rank{r}_of_2"] = out["matfree"]["launches"]
+    by_path["am_matfree_streamed"] = streamed["launches"]
     w1 = world1["warm"]
     print(f"world 1 (NCCL): am(engine='sharded') {world1['wall_s']:.1f} s, "
           f"mmt_psum {w1['mmt_psum']['ms']:.3f} ms, "
@@ -2062,6 +2352,18 @@ def run(args) -> None:
           f"permutation; device Lanczos m = {main['lanczos']['m']} "
           f"{main['lanczos']['device_ms']:.1f} ms vs host "
           f"{main['lanczos']['host_ms']:.1f} ms")
+    print(f"streamed stack ({card}): am() {streamed['wall_s']:.1f} s, "
+          f"{streamed['passes']} passes of {streamed['gate']['chunks']} "
+          f"chunks, link {streamed['link']['gb_s']:.2f} GB/s (1 GiB copy), "
+          f"{streamed['link']['ring_gb_s']:.2f} GB/s (the ring's copies); "
+          "K3 a pass "
+          + ", ".join(f"r={r}: streamed {k['streamed_ms']:.2f} ms, resident "
+                      f"{k['resident_ms']:.2f} ms, bound {k['bound_ms']:.2f} "
+                      f"ms ({k['bound_by']})"
+                      for r, k in streamed["kv"].items())
+          + f"; idle share of a traced iteration "
+          f"{streamed['trace'].get('device_idle_share', float('nan')):.1%}; "
+          f"exact config 2 {streamed['exact_wall_s']:.2f} s")
     entries = []
     head = 64
     for name, meta in KERNELS.items():
@@ -2080,7 +2382,9 @@ def run(args) -> None:
             "name": name, "route": "cuda", "source": meta["source"],
             "replaces": meta["replaces"],
             "launches": main["launches"][name],
-            "launches_by_path": {k: v[name] for k, v in by_path.items()},
+            "launches_by_path": {
+                **{k: v[name] for k, v in by_path.items()},
+                "exact_streamed": streamed["exact_launches"][name]},
             "summary_am_matfree_rel_err":
                 flow["summary_matfree_rel_err"][name],
             "two_rank_rel_err": max(o["matfree"]["rel_err"][name]

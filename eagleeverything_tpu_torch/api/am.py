@@ -6,10 +6,11 @@ points: input validation and NA bookkeeping on the host, then dispatch to an
 engine — the dense float64 oracle, the exact eigenbasis engine
 (engine_torch.forward_select: MMt, one eigendecomposition and eigenbasis
 sweeps as torch ops on the device; the default up to ``matfree_min_n``
-individuals), or the matrix-free engine over the device-resident packed
-stack (models/bigscan on engine_torch.TiledScan, with the hand-written CUDA
-kernels of ops/packed; the default above it) — all of which share the same
-host-f64 REML/extBIC decision path (models/reml_core).
+individuals), or the matrix-free engine over the packed stack, on the
+device or streamed through it (models/bigscan on engine_torch.TiledScan,
+with the hand-written CUDA kernels of ops/packed; the default above it) —
+all of which share the same host-f64 REML/extBIC decision path
+(models/reml_core).
 """
 
 from __future__ import annotations
@@ -106,8 +107,9 @@ def am(
     elif engine == "matfree":
         # biobank n-scale mode: K never materialized — CG/SLQ REML and the
         # two-stage probe/exact score sweep (docs/design_biobank_scale.md)
-        # over the device-resident packed stack (each rank's SNP range in a
-        # multi-process run: the kernel matvec sums over the ranks)
+        # over the packed stack, on the device or streamed through it (each
+        # rank's SNP range in a multi-process run: the kernel matvec sums
+        # over the ranks)
         from eagleeverything_tpu_torch.models import bigscan, engine_torch
         src = engine_torch._make_source(prep.handle, prep.keep_individuals)
         backend = engine_torch.scan_backend(src, config, dev)

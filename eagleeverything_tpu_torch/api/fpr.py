@@ -66,15 +66,16 @@ def fpr4am(
     n = y.shape[0]
 
     src = engine_torch._make_source(prep.handle, prep.keep_individuals)
-    backend = engine_torch.scan_backend(src, config, dev)
+    if engine == "auto":
+        engine = "matfree" if prep.handle.n > config.matfree_min_n else "eig"
+    backend = engine_torch.scan_backend(src, config, dev,
+                                        matfree=(engine == "matfree"))
     p = src.p
     if p < 2:
         raise ValueError(
             f"FPR calibration needs at least 2 SNPs (got p={p}): the "
             "extBIC penalty difference log C(p,1) is zero at p=1")
 
-    if engine == "auto":
-        engine = "matfree" if prep.handle.n > config.matfree_min_n else "eig"
     if engine == "matfree":
         lam_crits, cands = _matfree_lam_crits(prep, src, backend, numreps,
                                               seed, quiet)

@@ -54,7 +54,8 @@ def summary_am(
         engine = "matfree" if src.n > config.matfree_min_n else "exact"
     if engine not in ("exact", "matfree"):
         raise ValueError(f"unknown summary engine {engine!r}")
-    backend = engine_torch.scan_backend(src, config, dev)
+    backend = engine_torch.scan_backend(src, config, dev,
+                                        matfree=(engine == "matfree"))
 
     idx = list(res.indices)
     Wcols = np.column_stack(

@@ -31,9 +31,13 @@ no Zmat, or a one-hot Zmat as a record → individual index), every CG solve
 keeps its block state on the device (engine_torch.TiledScan.device_cg) and
 every Lanczos recurrence runs there too, with its basis resident
 (TiledScan.device_lanczos); each matvec is two hand-written kernel
-launches. A Zmat that is not one-hot wraps the kernel matvec on the host
-and takes the host f64 recurrences (:func:`blocked_cg`, :func:`_lanczos`),
-whose matvec still launches the kernels.
+launches, two a chunk when the packed stack streams through the device.
+The reference falls back to its host CG once its stack is not on the
+device; the port keeps the device CG and Lanczos on a streamed stack,
+whose answer is the same within the matrix-free tolerance. A Zmat that is
+not one-hot wraps the kernel matvec on the host and takes the host f64
+recurrences (:func:`blocked_cg`, :func:`_lanczos`), whose matvec still
+launches the kernels.
 """
 
 from __future__ import annotations
@@ -1201,10 +1205,12 @@ def forward_select_matfree(
     if Z is not None:
         Z = np.asarray(Z, dtype=np.float64)
 
-    # the first kernel matvec (the s0 estimate) builds the resident stack
+    # the first kernel matvec (the s0 estimate) builds the stack (and
+    # pins it on the host when it streams)
     with Phase(logger, "context"):
         ctx = make_context(backend, n, Z=Z, probes=probes,
                            lanczos_m=lanczos_m, s0=s0)
+    logger.event("stack", **backend.stack_info())
     ctx.solve_m = solve_m
     ctx.solve_m_refit = solve_m_refit
     ctx.cg_tol = cg_tol
@@ -1349,7 +1355,9 @@ def forward_select_matfree(
         else:
             break
 
-    logger.event("stack_passes", total=getattr(backend, "stack_passes", None))
+    logger.event("stack_passes", total=backend.stack_passes,
+                 stream_passes=backend.stream_passes,
+                 h2d_bytes=backend.h2d_bytes)
     logger.close()
     return AMResult(
         indices=selected, extbic_path=extbic_path,
@@ -1458,10 +1466,12 @@ def forward_select_matfree_multi(
     logger = ScanLogger(quiet=quiet, jsonl_path=log_jsonl,
                         is_host0=distributed.is_host0())
 
-    # the first kernel matvec (the s0 estimate) builds the resident stack
+    # the first kernel matvec (the s0 estimate) builds the stack (and
+    # pins it on the host when it streams)
     with Phase(logger, "context"):
         ctx = make_context(backend, n, probes=probes, lanczos_m=lanczos_m,
                            s0=s0)
+    logger.event("stack", **backend.stack_info())
     ctx.solve_m = solve_m
     ctx.solve_m_refit = solve_m_refit
     ctx.cg_tol = cg_tol
@@ -1612,7 +1622,9 @@ def forward_select_matfree_multi(
         active = still
         save_ckpt(it + 1)
 
-    logger.event("stack_passes", total=getattr(backend, "stack_passes", None))
+    logger.event("stack_passes", total=backend.stack_passes,
+                 stream_passes=backend.stream_passes,
+                 h2d_bytes=backend.h2d_bytes)
     logger.close()
     out = []
     for t in range(R):

@@ -1,10 +1,12 @@
-"""The scan backend over the resident 2-bit packed stack, and the exact
-eigenbasis engine's forward selection.
+"""The scan backend over the 2-bit packed stack, and the exact eigenbasis
+engine's forward selection.
 
 Counterpart of the JAX package's models/engine_jax.py. The whole genotype
 matrix (in a multi-process run: the rank's SNP range, MultiHostTiledScan)
-lives on the device as one int32 packed stack (four genotypes a byte,
-sixteen a word). Two engines read it:
+is one int32 packed stack (four genotypes a byte, sixteen a word): on the
+device when it fits there beside what the scan holds, else in page-locked
+host memory, streamed through the device chunk by chunk on every pass
+(:func:`_stack_plan`, :meth:`TiledScan._stack_chunks`). Two engines read it:
 
 - the matrix-free engine (models/bigscan), whose every pass over the stack
   is one of the two hand-written kernels of ops/packed: ``kernel_matvec``
@@ -12,7 +14,7 @@ sixteen a word). Two engines read it:
   the device CG and the device Lanczos, whose state and basis stay on the
   device) and ``sweep_dots`` / ``matfree_stat_rows`` /
   ``matfree_stat_rows_multi`` (one packed_dot, R traits side by side in
-  the last);
+  the last), each once a chunk on a streamed stack;
 - the exact eigenbasis engine (:func:`forward_select`,
   :func:`forward_select_multi`), the default below ``matfree_min_n``: the
   stack is unpacked a tile at a time into f32 W for the torch ops of
@@ -35,7 +37,8 @@ source is packed on the host first.
 from __future__ import annotations
 
 import hashlib
-from typing import Iterator, Optional
+import time
+from typing import Iterator, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -410,15 +413,161 @@ def _ieee_fp32() -> None:
     torch.set_float32_matmul_precision("highest")
 
 
+# the widest block a Krylov step holds and K3 runs at: one 144-wide column
+# tile of the kernels (mma_tile_width in ops/csrc/packed_common.cuh), which
+# takes the 128 probe columns of the sweep and every narrower block
+KRYLOV_COLS = 144
+# results a pass gathers for every SNP, f32 (the stat rows of every trait,
+# joined in chunk order, or the exact engine's batched scores), counted in
+# the reserve
+RESULT_COLS = 64
+
+
+class StackPlan(NamedTuple):
+    """Where the packed stack lives (:func:`_stack_plan`)."""
+
+    mode: str            # "resident" or "streamed"
+    chunk_rows: int      # stack rows a pass hands the kernels at once
+    slots: int           # device chunk buffers of the ring (streamed)
+    free_bytes: int      # device memory the gate saw free (0 on the CPU)
+    reserve_bytes: int   # what a scan holds beside a resident stack
+    # the widest K1 block of a stat-row pass (matfree_stat_rows_multi
+    # sub-batches its traits under it); 0 for the exact engine
+    stat_cols: int = MULTI_STAT_COLS
+
+
+def stack_reserve(n: int, p: int, config: EagleConfig, sms: int,
+                  cache_device: bool, stat_cols: int,
+                  tile_snps: int) -> tuple[int, int]:
+    """Device bytes a scan holds beside the packed stack, as (fixed, a
+    row): the fixed part does not depend on how many stack rows a pass
+    hands the kernels at once, the other grows with them (all p rows when
+    the stack is resident, one chunk when it streams). ``stat_cols`` is
+    the widest K1 block of the matrix-free scan's stat-row passes, 0 for
+    the exact engine, which runs neither K1 nor K2 and holds no Krylov
+    state. Read off the code:
+
+    fixed, every scan
+      - the per-SNP means and up to RESULT_COLS f32 results a SNP;
+    fixed, the matrix-free engine (``stat_cols`` > 0)
+      - the Krylov bases, (r_pad, m, n) f32 on the device
+        (``device_lanczos``): one basis that ShiftedKrylov caches (its f64
+        count is held to ``matfree_cache_gb``, so its f32 to half of it),
+        and the probe basis of ``isqrt_probes`` (``matfree_diag_probes``
+        columns, ``matfree_lanczos_m`` deep), cached or not;
+      - eight (n, KRYLOV_COLS) f32 blocks: the CG's X, R, P and H·P with
+        the step's temporaries, the Lanczos V, V_prev and W;
+      - K1's operand at ``stat_cols`` f32 columns and its three bf16
+        pieces;
+      - K2's split partials, (nsplit, n, KRYLOV_COLS) f32, nsplit as
+        ``ee_packed_tdot_splits`` bounds it for ``sms`` SMs (sixteen
+        128-row blocks an SM, at most 64);
+    fixed, the exact engine (``stat_cols`` = 0)
+      - one n×n f32 matrix: K while MMt accumulates, then the eigenbasis
+        U (``set_eigenbasis``); four above ``host_eigh_max_n``, where the
+        eigendecomposition runs on the device (K, U and the solver's
+        workspace of about two more);
+      - one tile's recoded W (compute_dtype) and its image T (f32);
+      - the W and T caches when ``cache_device`` holds (both while T is
+        built);
+    a row, the matrix-free engine
+      - K1's output, at ``stat_cols`` or at KRYLOV_COLS as K3's first
+        half, and the stat rows' reduction of it: two f32 rows;
+      - K2's two bf16 pieces of its operand at KRYLOV_COLS.
+    The exact engine holds nothing a row beyond the stack itself.
+
+    At 50 000 × 262 144 the matrix-free reserve is 2.82 GB fixed and
+    5.7 kB a row at ``stat_cols`` = MULTI_STAT_COLS (4.31 GB with the rows
+    of a resident stack), 2.57 GB and 1.7 kB a row at KRYLOV_COLS (3.02
+    GB), against the 1.80 GB beside the stack at which the smoke's
+    single-trait matrix-free am() peaks."""
+    itemsize = 2 if config.compute_dtype == "bfloat16" else 4
+    fixed = p * (1 + RESULT_COLS) * 4
+    if not stat_cols:
+        square = 4 if n > config.host_eigh_max_n else 1
+        fixed += square * n * n * 4 + tile_snps * n * (itemsize + 4)
+        if cache_device:
+            fixed += p * n * (itemsize + 4)
+        return int(fixed), 0
+    cache = config.matfree_cache_gb * 1e9 / 2
+    probes = (-(-config.matfree_diag_probes // 8) * 8
+              * config.matfree_lanczos_m * n * 4)
+    nsplit = min(64, -(-16 * sms // -(-n // 128)))
+    fixed += (cache + max(cache, probes)
+              + 8 * n * KRYLOV_COLS * 4
+              + n * stat_cols * (4 + 3 * 2)
+              + nsplit * n * KRYLOV_COLS * 4)
+    per_row = 2 * max(stat_cols, KRYLOV_COLS) * 4 + 2 * KRYLOV_COLS * 2
+    return int(fixed), per_row
+
+
+def _stack_plan(p: int, nw: int, n: int, device: torch.device,
+                config: EagleConfig, tile_snps: int, cache_device: bool,
+                matfree: bool) -> StackPlan:
+    """Resident or streamed, and the chunk of a streamed stack.
+
+    Resident when the stack and the scan's reserve (:func:`stack_reserve`)
+    fit the card's free memory: ``torch.cuda.mem_get_info``'s free plus
+    what the caching allocator holds unallocated, so a later scan of a
+    process whose blocks are cached takes the same decision. The
+    matrix-free reserve is tried at two widths of the stat-row passes:
+    MULTI_STAT_COLS, where ``am_multi`` scans several traits in one pass,
+    then KRYLOV_COLS, where it takes a pass a trait (the single-trait
+    block, 1 + q8 + 128 columns, fits it up to q = 8 fixed effects) and
+    the stack still stays. Otherwise the stack streams, at the narrower
+    width, through a ring of 3 (else 2) chunk buffers that fit beside the
+    fixed reserve, a chunk a multiple of ``tile_snps`` rows (of 128 when
+    not even one tile fits), so that the exact engine's W tiles fall as
+    they do on a resident stack. On the CPU the stack is always resident.
+    Raises when not even two 128-row chunks fit."""
+    if device.type != "cuda":
+        return StackPlan("resident", p, 0, 0, 0)
+    free, _ = torch.cuda.mem_get_info(device)
+    free += (torch.cuda.memory_reserved(device)
+             - torch.cuda.memory_allocated(device))
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    row = nw * 4
+    for width in ((MULTI_STAT_COLS, KRYLOV_COLS) if matfree else (0,)):
+        fixed, per_row = stack_reserve(n, p, config, sms, cache_device,
+                                       width, tile_snps)
+        reserve = fixed + per_row * p
+        if p * row + reserve <= free:
+            return StackPlan("resident", p, 0, free, reserve, width)
+    for slots in (3, 2):
+        c = max(free - fixed, 0) // (slots * row + per_row)
+        c = c // tile_snps * tile_snps if c >= tile_snps else c // 128 * 128
+        if c >= 128:
+            return StackPlan("streamed", min(c, p), slots, free, reserve,
+                             width)
+    raise ValueError(
+        f"the packed stack of {n} individuals x {p} SNPs "
+        f"({p * row / 1e9:.3f} GB) can neither stay on {device} nor stream "
+        f"through it: {free / 1e9:.3f} GB free, {fixed / 1e9:.3f} GB of it "
+        f"held for the scan, and two chunks of 128 rows need "
+        f"{2 * 128 * row / 1e9:.3f} GB more")
+
+
 class TiledScan:
-    """Single-device backend over the resident packed stack (reference:
-    the per-iteration ReadBlock sweep of ``calculate_a_and_vara_rcpp``,
+    """Single-device backend over the packed stack (reference: the
+    per-iteration ReadBlock sweep of ``calculate_a_and_vara_rcpp``,
     SURVEY.md §4.2, with device memory standing in for disk): the
     matrix-free engine's kernel passes, and the exact engine's MMt and
-    eigenbasis sweeps over recoded W tiles."""
+    eigenbasis sweeps over recoded W tiles.
+
+    The stack stays on the card when it fits beside what the scan holds
+    there (:func:`_stack_plan`); otherwise it lives in page-locked host
+    memory and every pass streams it through the card chunk by chunk
+    (:meth:`_stack_chunks`), K1/K2 running on each chunk while the next is
+    copied. Every primitive reads the stack through that one iterator, so
+    the engines above run unchanged on either. ``matfree`` says which
+    engine reads it, so that the gate reserves what that engine holds
+    beside the stack. The decision (``plan``, ``stack_mode``,
+    ``chunk_rows``) and the streaming counters (``stream_passes``,
+    ``h2d_bytes``) are attributes and go to the scan log
+    (:meth:`stack_info`)."""
 
     def __init__(self, src: TileSource, config: EagleConfig,
-                 device: torch.device):
+                 device: torch.device, matfree: bool = True):
         self.src = src
         self.config = config
         self.device = torch.device(device)
@@ -439,46 +588,173 @@ class TiledScan:
         self._tcache: Optional[list[tuple[int, torch.Tensor]]] = None
         self._U_dev: Optional[torch.Tensor] = None
         if self.device.type == "cuda":
-            # the packed stack is the only matrix-free path on the card: a
-            # stack larger than the card's free memory is refused, never
-            # streamed
-            packed_bytes = src.p * self.nw * 4
-            free, total = torch.cuda.mem_get_info(self.device)
-            if packed_bytes > free:
-                raise ValueError(
-                    f"the packed stack of {src.n} individuals x {src.p} "
-                    f"SNPs takes {packed_bytes / 1e9:.3f} GB, more than the "
-                    f"{free / 1e9:.3f} GB free of {total / 1e9:.3f} GB on "
-                    f"{self.device}")
             _ieee_fp32()
+        self.plan = _stack_plan(src.p, self.nw, src.n, self.device, config,
+                                self.tile_snps, self.cache_device, matfree)
+        # passes through the chunk ring, and the bytes they copied to the
+        # card (0 on the CPU, where a chunk is a view of the host stack)
+        self.stream_passes = 0
+        self.h2d_bytes = 0
+        self.build_s: Optional[float] = None
         self._pstack: Optional[torch.Tensor] = None
         self._pmeans: Optional[torch.Tensor] = None
+        self._ring: Optional[list[torch.Tensor]] = None
+        self._copy_stream = None
+        self._freed: list = []
+        self._slot = 0
         self._score = (kernels.score_tile_sqrt_bf16
                        if config.compute_dtype == "bfloat16"
                        else kernels.score_tile_sqrt)
 
-    def _packed_stack(self) -> torch.Tensor:
-        """The whole source as ONE device-resident (p, ⌈⌈n/4⌉/4⌉) int32
-        stack (little-endian word view of the 2-bit byte stream: word w
-        holds genotypes 16w+k at bits 2k), built tile by tile into a
-        preallocated buffer so peak device memory is 1× the packed size;
-        bytes past a row's ⌈n/4⌉ are 0x55 (het codes → W = 0). The
-        per-SNP means are computed once, with the stack."""
-        if self._pstack is not None:
-            return self._pstack
+    @property
+    def stack_mode(self) -> str:
+        return self.plan.mode
+
+    @property
+    def chunk_rows(self) -> int:
+        return self.plan.chunk_rows
+
+    def _build_stack(self, dest: torch.Tensor) -> None:
+        """Fill ``dest`` ((p, ⌈⌈n/4⌉/4⌉) int32, on the device or on the
+        host) with the source tile by tile: the little-endian word view of
+        the 2-bit byte stream (word w holds genotypes 16w+k at bits 2k),
+        bytes past a row's ⌈n/4⌉ set to 0x55 (het codes → W = 0)."""
         nw = self.nw
-        buf = torch.full((self.src.p, nw), packed.PAD_WORD,
-                         dtype=torch.int32, device=self.device)
         for j0, raw in self.src.packed_tiles(self.tile_snps):
             # uint8 (b, nb) tile → little-endian int32 (b, nw) words (the
             # host is little-endian, so a view is the right bits)
             wb = np.full((raw.shape[0], nw * 4), 0x55, dtype=np.uint8)
             wb[:, : raw.shape[1]] = raw
-            buf[j0 : j0 + raw.shape[0]] = torch.from_numpy(
-                wb.view(np.int32)).to(self.device)
-        self._pstack = buf
-        self._pmeans = packed.row_means(buf, self.src.n)
+            dest[j0 : j0 + raw.shape[0]] = torch.from_numpy(wb.view(np.int32))
+
+    def _packed_stack(self) -> torch.Tensor:
+        """The whole source as ONE (p, ⌈⌈n/4⌉/4⌉) int32 stack, built once:
+        on the device when resident (into a preallocated buffer, so peak
+        device memory is 1× the packed size), else in page-locked host
+        memory on a card (the copies to it are then asynchronous DMA; from
+        pageable memory each would be a synchronous copy), so a failed pin
+        raises ValueError with the sizes. The per-SNP means are computed
+        with it and stay on the device; a streamed stack computes them
+        chunk by chunk, in one pass through the ring. ``build_s`` times it
+        all."""
+        if self._pstack is not None:
+            return self._pstack
+        t0 = time.perf_counter()
+        p, n = self.src.p, self.src.n
+        if self.stack_mode == "resident":
+            buf = torch.full((p, self.nw), packed.PAD_WORD,
+                             dtype=torch.int32, device=self.device)
+            self._build_stack(buf)
+            self._pstack = buf
+            self._pmeans = packed.row_means(buf, n)
+        else:
+            try:
+                buf = torch.empty((p, self.nw), dtype=torch.int32,
+                                  pin_memory=self.device.type == "cuda")
+            except RuntimeError as e:
+                raise ValueError(
+                    f"could not allocate the page-locked host stack of {p} "
+                    f"SNPs x {self.nw} words ({p * self.nw * 4 / 1e9:.3f} "
+                    f"GB) to stream from: {e}") from e
+            self._build_stack(buf)
+            self._pstack = buf
+            self._pmeans = torch.empty(p, dtype=torch.float32,
+                                       device=self.device)
+            for r0, Wc in self._stack_chunks():
+                self._pmeans[r0 : r0 + Wc.shape[0]] = packed.row_means(Wc, n)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.build_s = time.perf_counter() - t0
         return buf
+
+    def _stack_chunks(self) -> Iterator[tuple[int, torch.Tensor]]:
+        """(row0, Wp chunk) over the stack, in row order: the unit every
+        pass reads. Resident: one chunk, the stack itself, no copy.
+
+        Streamed on a card (reference: engine_jax.TiledScan._device_tiles'
+        producer thread and queue of 2; here the copy engine is the
+        producer): chunk i+1 is copied from the page-locked host stack into
+        ring slot (i+1) mod k on a copy stream while the kernels run on
+        slot i. A slot is overwritten only after an event that the compute
+        stream records once the last launch reading it is queued (when the
+        consumer asks for the next chunk); the compute stream waits on the
+        copy's event before the kernels read it. The ring is allocated once
+        on the compute stream, and every copy that was issued is ordered
+        before later compute work (also when a consumer stops early), so
+        the allocator can never hand a slot on while a copy still writes
+        it. Slots rotate across passes, so a pass's first copy waits only
+        for the compute that last read its slot. The last chunk is ragged;
+        row slices of the contiguous stack are contiguous, as the kernels'
+        wrappers require. A chunk is valid until the consumer asks for the
+        next one. On the CPU a chunk is a row slice of the host stack.
+
+        ``stream_passes`` counts the passes that reached the end;
+        ``h2d_bytes`` the bytes copied to the card."""
+        Wp = self._packed_stack()
+        if self.stack_mode == "resident":
+            yield 0, Wp
+            return
+        p, C = self.src.p, self.chunk_rows
+        starts = range(0, p, C)
+        if self.device.type != "cuda":
+            for r0 in starts:
+                yield r0, Wp[r0 : r0 + C]
+            self.stream_passes += 1
+            return
+        if self._ring is None:
+            self._ring = [torch.empty((C, self.nw), dtype=torch.int32,
+                                      device=self.device)
+                          for _ in range(self.plan.slots)]
+            self._copy_stream = torch.cuda.Stream(self.device)
+            self._freed = [None] * self.plan.slots
+        compute = torch.cuda.current_stream(self.device)
+        copy, ring, k = self._copy_stream, self._ring, len(self._ring)
+        pending: dict[int, tuple[int, torch.cuda.Event]] = {}
+
+        def issue(i: int) -> None:
+            s = (self._slot + i) % k
+            r0 = starts[i]
+            rows = min(C, p - r0)
+            with torch.cuda.stream(copy):
+                if self._freed[s] is not None:
+                    copy.wait_event(self._freed[s])
+                ring[s][:rows].copy_(Wp[r0 : r0 + rows], non_blocking=True)
+                ready = torch.cuda.Event()
+                ready.record(copy)
+            pending[i] = (s, ready)
+            self.h2d_bytes += rows * self.nw * 4
+
+        try:
+            issue(0)
+            for i, r0 in enumerate(starts):
+                if i + 1 < len(starts):
+                    issue(i + 1)
+                s, ready = pending.pop(i)
+                compute.wait_event(ready)
+                try:
+                    yield r0, ring[s][: min(C, p - r0)]
+                finally:
+                    freed = torch.cuda.Event()
+                    freed.record(compute)
+                    self._freed[s] = freed
+        finally:
+            for _, ready in pending.values():
+                compute.wait_event(ready)
+            self._slot = (self._slot + len(starts)) % k
+        self.stream_passes += 1
+
+    def stack_info(self) -> dict:
+        """The gate's decision and the streaming counters (for the scan
+        log: ``build_s`` is the stack's build, pinning included)."""
+        return {"mode": self.stack_mode, "chunk_rows": self.chunk_rows,
+                "chunks": -(-self.src.p // self.chunk_rows),
+                "slots": self.plan.slots,
+                "stack_bytes": self.src.p * self.nw * 4,
+                "free_bytes": self.plan.free_bytes,
+                "reserve_bytes": self.plan.reserve_bytes,
+                "build_s": self.build_s,
+                "stream_passes": self.stream_passes,
+                "h2d_bytes": self.h2d_bytes}
 
     def _to_device(self, V: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(V), dtype=torch.float32,
@@ -488,18 +764,35 @@ class TiledScan:
     def _to_host(T: torch.Tensor) -> np.ndarray:
         return T.cpu().numpy().astype(np.float64)
 
+    def _means(self, r0: int, Wc: torch.Tensor) -> torch.Tensor:
+        return self._pmeans[r0 : r0 + Wc.shape[0]]
+
+    def _local_kv(self, V: torch.Tensor) -> torch.Tensor:
+        """MMt·V = Σ_c W_cᵀ(W_c·V) over the stack's chunks (K1 then K2 on
+        each; one chunk when resident), summed in chunk order into one
+        (n, r) f32 block, so the result is bitwise repeatable."""
+        out = None
+        for r0, Wc in self._stack_chunks():
+            KV = packed.kernel_matvec(Wc, V, self._means(r0, Wc), self.src.n)
+            out = KV if out is None else out.add_(KV)
+        return out
+
+    def _by_rows(self, fn) -> torch.Tensor:
+        """``fn(means, chunk)`` on each chunk of the stack, a block of the
+        chunk's rows each, joined in row order."""
+        parts = [fn(self._means(r0, Wc), Wc)
+                 for r0, Wc in self._stack_chunks()]
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
+
     def kernel_matvec(self, V: np.ndarray) -> np.ndarray:
         """Raw-kernel matvec MMt·V (V (n, r)) — K is never materialized."""
         self.stack_passes += 1
-        Wp = self._packed_stack()
-        return self._to_host(packed.kernel_matvec(
-            Wp, self._to_device(V), self._pmeans, self.src.n))
+        return self._to_host(self._local_kv(self._to_device(V)))
 
     def _device_kv(self, V: torch.Tensor) -> torch.Tensor:
         """MMt·V on the device, V (n, r) a device tensor: the unit of every
         device CG and Lanczos step."""
-        return packed.kernel_matvec(self._packed_stack(), V, self._pmeans,
-                                    self.src.n)
+        return self._local_kv(V)
 
     def _h_apply_host(self, X: np.ndarray, delta, s0: float,
                       z_idx: Optional[np.ndarray] = None) -> np.ndarray:
@@ -528,7 +821,12 @@ class TiledScan:
         device, so tol is floored at 1e-6. ``x0`` warm-starts the solve in
         residual form (convergence stays relative to the ORIGINAL ‖B‖).
         ``z_idx`` (record → individual index of a 0/1 incidence Zmat)
-        switches the operator to record space H = Z·K·Zᵀ/s0 + δI."""
+        switches the operator to record space H = Z·K·Zᵀ/s0 + δI.
+
+        A streamed stack keeps this loop (each step's K·V streams the
+        chunks), where the reference falls back to its host CG once the
+        stack is not on the device: the answer is the same within the
+        matrix-free engine's tolerance."""
         r = B.shape[1]
         if x0 is not None and x0.shape != B.shape:
             x0 = None
@@ -616,21 +914,21 @@ class TiledScan:
                 self._to_host(z_norm), basis)
 
     def sweep_dots(self, A: np.ndarray) -> np.ndarray:
-        """Per-SNP dot products W·A ((p, r)), one packed_dot launch."""
-        Wp = self._packed_stack()
-        return self._to_host(packed.packed_dot(
-            Wp, self._to_device(A), self._pmeans, self.src.n))
+        """Per-SNP dot products W·A ((p, r)), one packed_dot launch a
+        chunk."""
+        A_d = self._to_device(A)
+        return self._to_host(self._by_rows(
+            lambda m, Wc: packed.packed_dot(Wc, A_d, m, self.src.n)))
 
     def matfree_stat_rows(
         self, A: np.ndarray, q: int, XtHiX_inv: np.ndarray
     ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
         """Per-SNP matfree sweep statistics (â, u, Hutchinson diag, proj)
-        for A = [P̃y, H⁻¹X, H^(-1/2)·probes]: one packed_dot, then the
+        for A = [P̃y, H⁻¹X, H^(-1/2)·probes]: one packed_dot a chunk, whose
         probe block is reduced ON THE DEVICE, so (p, q+3) comes back, not
         (p, 1+q+r). q is padded to a multiple of 8 as in the reference
         (zero u/Minv columns are inert)."""
         self.stack_passes += 1
-        Wp = self._packed_stack()
         r = A.shape[1] - 1 - q
         q8 = -(-max(q, 1) // 8) * 8
         A_pad = np.zeros((A.shape[0], 1 + q8 + r))
@@ -639,9 +937,9 @@ class TiledScan:
         A_pad[:, 1 + q8 :] = A[:, 1 + q :]
         M_pad = np.zeros((q8, q8))
         M_pad[:q, :q] = XtHiX_inv
-        D = packed.packed_dot(Wp, self._to_device(A_pad), self._pmeans,
-                              self.src.n)
-        out = self._to_host(_stats_from_D(D, self._to_device(M_pad), q8))
+        A_d, M_d = self._to_device(A_pad), self._to_device(M_pad)
+        out = self._to_host(self._by_rows(lambda m, Wc: _stats_from_D(
+            packed.packed_dot(Wc, A_d, m, self.src.n), M_d, q8)))
         return (out[:, 0], out[:, 1 : 1 + q], out[:, 1 + q8], out[:, 2 + q8])
 
     def matfree_stat_rows_multi(
@@ -649,13 +947,15 @@ class TiledScan:
         Minv_list: list[np.ndarray],
     ) -> list[tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]]:
         """R traits' (or permutations') sweep statistics from ONE packed_dot
-        over the concatenated blocks (reference:
+        a chunk over the concatenated blocks (reference:
         engine_jax.TiledScan.matfree_stat_rows_multi).
 
         A_list[t] = [P̃y_t, H⁻¹X_t (q_t cols), H^(-1/2)probes_t (r cols)]
         with a common probe count r; q_t may differ, and every trait is
         padded to one multiple-of-8 q (zero columns are inert). Traits are
-        sub-batched so one launch stays within MULTI_STAT_COLS columns.
+        sub-batched so one launch stays within the columns the stack's
+        gate reserved (MULTI_STAT_COLS, or KRYLOV_COLS when the stack
+        stays on the card only at that width or streams).
         Returns per-trait (ahat, U, diag, proj)."""
         R = len(A_list)
         if R == 1:
@@ -664,8 +964,8 @@ class TiledScan:
         r = A_list[0].shape[1] - 1 - q_list[0]
         q8 = -(-max(max(q_list), 1) // 8) * 8
         c = 1 + q8 + r
-        if R * c > MULTI_STAT_COLS:
-            per = max(1, MULTI_STAT_COLS // c)
+        if R * c > self.plan.stat_cols:
+            per = max(1, self.plan.stat_cols // c)
             out = []
             for s in range(0, R, per):
                 out.extend(self.matfree_stat_rows_multi(
@@ -673,7 +973,6 @@ class TiledScan:
                     Minv_list[s : s + per]))
             return out
         self.stack_passes += 1
-        Wp = self._packed_stack()
         A_cat = np.zeros((A_list[0].shape[0], R * c))
         M_cat = np.zeros((R, q8, q8))
         for t, (A, qt) in enumerate(zip(A_list, q_list)):
@@ -684,10 +983,9 @@ class TiledScan:
             A_cat[:, t * c + 1 : t * c + 1 + qt] = A[:, 1 : 1 + qt]
             A_cat[:, t * c + 1 + q8 : (t + 1) * c] = A[:, 1 + qt :]
             M_cat[t, :qt, :qt] = Minv_list[t]
-        D = packed.packed_dot(Wp, self._to_device(A_cat), self._pmeans,
-                              self.src.n)
-        out = self._to_host(_stats_from_D_multi(D, self._to_device(M_cat),
-                                                q8, R))
+        A_d, M_d = self._to_device(A_cat), self._to_device(M_cat)
+        out = self._to_host(self._by_rows(lambda m, Wc: _stats_from_D_multi(
+            packed.packed_dot(Wc, A_d, m, self.src.n), M_d, q8, R)))
         w = q8 + 3
         return [(out[:, t * w], out[:, t * w + 1 : t * w + 1 + qt],
                  out[:, t * w + 1 + q8], out[:, t * w + 2 + q8])
@@ -726,27 +1024,30 @@ class TiledScan:
 
     def _device_tiles(self) -> Iterator[tuple[int, torch.Tensor]]:
         """(offset, W tile (b, n) in compute_dtype), recoded on the device
-        from row slices of the resident stack; kept in a device cache when
+        from row slices of the stack's chunks (of the resident stack, or of
+        each chunk as it streams through); kept in a device cache when
         ``cache_device``.
 
         The reference feeds a TPU from the host: a producer thread streams
         int8 or packed tiles (or serves them from a separate stack of W),
         padded to one tile shape for its compiled programs. Here every
-        source is already packed into the resident stack, so each tile is
-        unpacked where it lies, the last one simply shorter; the results
-        are the same."""
+        source is already packed into the stack, so each tile is unpacked
+        from its chunk, the last one of a chunk simply shorter. A streamed
+        chunk is a multiple of ``tile_snps`` rows (when one tile fits the
+        ring), so the tiles, and MMt's sum over them, are the resident
+        stack's."""
         if self._wcache is not None:
             yield from self._wcache
             return
         cache = [] if self.cache_device else None
-        Wp = self._packed_stack()
-        for t0 in range(0, self.src.p, self.tile_snps):
-            w = kernels.unpack_recode_tile(Wp[t0 : t0 + self.tile_snps],
-                                           self.src.n,
-                                           self.config.compute_dtype)
-            if cache is not None:
-                cache.append((t0, w))
-            yield t0, w
+        for r0, Wc in self._stack_chunks():
+            for t in range(0, Wc.shape[0], self.tile_snps):
+                w = kernels.unpack_recode_tile(Wc[t : t + self.tile_snps],
+                                               self.src.n,
+                                               self.config.compute_dtype)
+                if cache is not None:
+                    cache.append((r0 + t, w))
+                yield r0 + t, w
         if cache is not None:
             self._wcache = cache
 
@@ -815,9 +1116,10 @@ class MultiHostTiledScan(TiledScan):
     """The multi-process backend (BASELINE config 4: biobank n over several
     cards), one rank a card.
 
-    Each rank holds ONLY its SNP range [lo, hi) as its resident packed
-    stack (store shard ↔ rank locality: a split store's foreign shards are
-    never opened), and the primitives compose across ranks:
+    Each rank holds ONLY its SNP range [lo, hi) as its packed stack
+    (store shard ↔ rank locality: a split store's foreign shards are never
+    opened), resident or streamed by the rank's own gate, and the
+    primitives compose across ranks:
 
     - ``kernel_matvec`` and ``compute_K``: the rank's partial, summed over
       the ranks in process order on the host (utils/distributed, f64);
@@ -838,14 +1140,14 @@ class MultiHostTiledScan(TiledScan):
     with the same arguments."""
 
     def __init__(self, src: TileSource, config: EagleConfig,
-                 device: torch.device):
+                 device: torch.device, matfree: bool = True):
         self.p_global = src.p
         self.global_src = src
         self.snp_range = distributed.process_snp_range(src.p)
         self.local_sizes = distributed.local_snp_sizes(src.p)
         self.device_allreduces = 0
         super().__init__(RangeTileSource(src, *self.snp_range), config,
-                         device)
+                         device, matfree)
 
     def kernel_matvec(self, V: np.ndarray) -> np.ndarray:
         return distributed.allreduce_sum_f64(super().kernel_matvec(V))
@@ -854,7 +1156,7 @@ class MultiHostTiledScan(TiledScan):
         return distributed.allreduce_sum_f64(super().compute_K())
 
     def _device_kv(self, V: torch.Tensor) -> torch.Tensor:
-        KV = super()._device_kv(V)
+        KV = self._local_kv(V)
         dist.all_reduce(KV)
         self.device_allreduces += 1
         return KV
@@ -884,15 +1186,15 @@ class MultiHostTiledScan(TiledScan):
             super().sweep_eig_batched(s, Q, z3, sigma2_g).T).T
 
 
-def scan_backend(src: TileSource, config: EagleConfig,
-                 device) -> TiledScan:
+def scan_backend(src: TileSource, config: EagleConfig, device,
+                 matfree: bool = True) -> TiledScan:
     """The backend over the packed stack that the matrix-free engine,
     ``am_multi``, ``summary_am`` and ``fpr4am`` build:
     :class:`MultiHostTiledScan` in a multi-process run, else
-    :class:`TiledScan`."""
+    :class:`TiledScan`; ``matfree`` False for their exact paths."""
     if distributed.process_count() > 1:
-        return MultiHostTiledScan(src, config, device)
-    return TiledScan(src, config, device)
+        return MultiHostTiledScan(src, config, device, matfree)
+    return TiledScan(src, config, device, matfree)
 
 
 class ShardedScan:
@@ -1068,7 +1370,7 @@ def forward_select(
     logger = ScanLogger(quiet=quiet, jsonl_path=log_jsonl,
                         is_host0=distributed.is_host0())
     backend = (ShardedScan(src, config, device) if sharded
-               else TiledScan(src, config, device))
+               else TiledScan(src, config, device, matfree=False))
 
     K_raw = None
     mmt_key = None
@@ -1206,6 +1508,8 @@ def forward_select(
                 meta={"trait_n": n, "p": p, "lam_ebic": lam_ebic},
             )
 
+    if not sharded:
+        logger.event("stack", **backend.stack_info())
     logger.close()
     return AMResult(
         indices=selected, extbic_path=extbic_path,
@@ -1254,7 +1558,7 @@ def forward_select_multi(
             f"host_eigh_max_n={config.host_eigh_max_n} → "
             f"{8 * n * n / 1e9:.0f} GB f64). Raise config.host_eigh_max_n "
             f"explicitly if the host truly has the memory.")
-    backend = scan_backend(src, config, device)
+    backend = scan_backend(src, config, device, matfree=False)
     with Phase(logger, "mmt", items=p):
         K_raw = backend.compute_K()
     if n != src.n:
@@ -1324,6 +1628,7 @@ def forward_select_multi(
                          accepted=s.active or fixit,
                          extbic=float(ebic_new))
 
+    logger.event("stack", **backend.stack_info())
     logger.close()
     return [
         AMResult(

@@ -40,9 +40,11 @@ class EagleConfig:
       device_cache_gb: device budget of the exact engine: its recoded W
         tiles and their eigenbasis images T stay on the device when
         p·n·itemsize fits half of it (else each sweep recomputes T from the
-        stack). The packed stack itself is not budgeted by it: it is held
-        against the card's free memory (engine_torch.TiledScan) and refused
-        when it does not fit.
+        stack). The packed stack itself is not budgeted by it: it is held,
+        with what the scan keeps beside it, against the card's free memory
+        (engine_torch._stack_plan); when it does not fit it stays in
+        page-locked host memory and streams through the card chunk by
+        chunk on every pass.
       host_eigh_max_n: the exact engine's eigendecomposition runs on the
         host in float64 up to this many individuals (U kept on the host),
         and above it in float32 on the device (U kept there).

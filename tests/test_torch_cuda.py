@@ -87,6 +87,42 @@ def test_stack_and_scan_on_card_match_cpu(cuda):
         np.testing.assert_allclose(got, ref, rtol=1e-3, atol=1e-2)
 
 
+@pytest.mark.parametrize("slots", [2, 3])
+def test_streamed_stack_on_card_matches_resident(cuda, monkeypatch, slots):
+    """The copy ring on the card: the stack forced to stream from pinned
+    host memory in 1024-row chunks (1024, 1024, 953) through two or three
+    slots. K·V agrees with the resident stack's to 1e-5 of its scale (K2's
+    split-K groups the rows by chunk), and with itself bit for bit; the
+    stat rows and MMt (the same 1024-row tiles) agree too; every pass copies
+    the whole stack, and each K·V launches K1 and K2 once a chunk."""
+    res, _, _, rng = _scan(1001, cuda)
+    monkeypatch.setattr(
+        engine_torch, "_stack_plan",
+        lambda p, nw, n, device, config, tile_snps, cache_device, matfree:
+        engine_torch.StackPlan("streamed", 1024, slots, 0, 0))
+    st, _, _, _ = _scan(1001, cuda)
+    assert st.stack_mode == "streamed" and st._pstack.is_pinned()
+    for r in (8, 137):
+        V = torch.from_numpy(rng.standard_normal((1001, r)).astype(
+            np.float32)).to(cuda)
+        packed.reset_launches()
+        got, again = st._device_kv(V), st._device_kv(V)
+        torch.cuda.synchronize()
+        assert packed.LAUNCHES == {"packed_dot": 6, "packed_tdot": 6}
+        assert torch.equal(got, again)
+        ref = res._device_kv(V)
+        scale = ref.abs().max().item()
+        assert (got - ref).abs().max().item() <= 1e-5 * scale
+    A = rng.standard_normal((1001, 1 + 3 + 20))
+    for got, ref in zip(st.matfree_stat_rows(A, 3, np.eye(3)),
+                        res.matfree_stat_rows(A, 3, np.eye(3))):
+        np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(st.compute_K(), res.compute_K(), rtol=1e-5,
+                               atol=1e-5)
+    assert st.h2d_bytes == st.stream_passes * st.stack_info()["stack_bytes"]
+    assert res.stream_passes == res.h2d_bytes == 0
+
+
 def test_launch_counts_and_repeatability(cuda):
     _, Wp, means, rng = _scan(1015, cuda)
     T = torch.from_numpy(rng.standard_normal((P, 64)).astype(np.float32)

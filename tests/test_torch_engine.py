@@ -125,20 +125,52 @@ def test_stack_from_every_source_is_the_same(pallas_store, scans):
                                   direct._pmeans.numpy())
 
 
-def test_stack_above_budget_is_refused(pallas_store, monkeypatch):
+def test_stack_above_free_memory_streams(pallas_store, monkeypatch):
     """The stack (3000 × 16 words = 192 000 bytes) is held against the
-    card's free memory, not against a configured budget."""
+    card's free memory with the matrix-free scan's reserve beside it, not
+    against a configured budget: one byte short of both at the narrower
+    stat-row width, it streams in chunks of 128-row multiples; with both,
+    it stays resident at that width; with the wider width's reserve too,
+    it stays at the wider width; without even the reserve, it is refused.
+    Nothing is allocated on the card by the decision."""
+    from types import SimpleNamespace
     d, _ = pallas_store
     src = engine_torch.StoreTileSource(d)
-    free = {"bytes": 191_999}
+    cfg = EagleConfig()
+    reserve = {}
+    for w in (engine_torch.KRYLOV_COLS, engine_torch.MULTI_STAT_COLS):
+        fixed, per_row = engine_torch.stack_reserve(NP_, PP_, cfg, 132, True,
+                                                    w, 256)
+        reserve[w] = fixed + per_row * PP_
+    narrow, wide = reserve[engine_torch.KRYLOV_COLS], \
+        reserve[engine_torch.MULTI_STAT_COLS]
+    assert narrow < wide
+    free = {"bytes": 0}
     monkeypatch.setattr(torch.cuda, "mem_get_info",
                         lambda device=None: (free["bytes"], 80 * 10**9))
-    with pytest.raises(ValueError, match="more than the 0.000 GB free"):
-        engine_torch.TiledScan(src, EagleConfig(), "cuda")
-    free["bytes"] = 192_000
-    sc = engine_torch.TiledScan(src, EagleConfig(device_cache_gb=1e-9),
-                                "cuda")
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda device=None: SimpleNamespace(
+                            multi_processor_count=132))
+    free["bytes"] = narrow + 191_999
+    sc = engine_torch.TiledScan(src, cfg, "cuda")
+    assert sc.stack_mode == "streamed" and sc.plan.reserve_bytes == narrow
+    assert sc.chunk_rows % 128 == 0 and 128 <= sc.chunk_rows < PP_
+    assert sc.plan.slots == 3 and sc.stack_info()["chunks"] >= 2
+    assert sc.plan.stat_cols == engine_torch.KRYLOV_COLS
     assert sc._pstack is None          # nothing is allocated on the card yet
+    free["bytes"] = narrow + 192_000
+    sc = engine_torch.TiledScan(src, cfg, "cuda")
+    assert sc.stack_mode == "resident" and sc.chunk_rows == PP_
+    assert sc.plan.stat_cols == engine_torch.KRYLOV_COLS
+    assert sc._pstack is None
+    free["bytes"] = wide + 192_000
+    sc = engine_torch.TiledScan(src, cfg, "cuda")
+    assert sc.stack_mode == "resident"
+    assert sc.plan.stat_cols == engine_torch.MULTI_STAT_COLS
+    free["bytes"] = 191_999
+    with pytest.raises(ValueError, match="can neither stay on cuda nor "
+                                         "stream through it"):
+        engine_torch.TiledScan(src, cfg, "cuda")
 
 
 def _files(d):
