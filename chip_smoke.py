@@ -103,11 +103,24 @@ Phases, each fatal when its check fails:
    second call tracing iteration 1; then BASELINE config 2 on the exact
    engine under the same kind of ballast (phase 8's selection, extBIC
    within rtol 1e-6);
-19. a summary line per kernel and the kernels' JSON line (launches by path,
+19. the stack read from the store on every pass (under phase 18's kind of
+   ballast, with ``availmem_gb`` below the stack, so that no host stack is
+   built and a reader thread fills two page-locked staging buffers): on
+   phase 6's cohort, K·V at r = 8 and 128 against the resident one (1e-5),
+   the pinned-streamed one and itself (bit for bit), a pass timed beside
+   phase 18's pinned pass with the reader's rate and the page-locked bytes
+   (at most ``availmem_gb``); ``am()`` through the normal entry point on
+   phase 12's cohort (50 000 × 65 536, every selection planted, every
+   pass reads the store once, every launch at each width and both chunk
+   lengths against the plain version); BASELINE config 2 on the exact
+   engine from an unpacked copy of phase 8's store, its int8 rows packed on
+   the card (phase 8's selection, extBIC within rtol 1e-6). The stores
+   were written in the run, so the page cache is warm;
+20. a summary line per kernel and the kernels' JSON line (launches by path,
    each read around exactly that call: the matrix-free am, summary_am,
    am with Zmat, am_multi, fpr4am, each rank of phase 17's matrix-free am,
-   and phase 18's streamed matrix-free and exact am), then the last line
-   ``{"ok": true, "device": {...}}``.
+   phase 18's streamed matrix-free and exact am, and phase 19's), then the
+   last line ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside a checkout, it exits non-zero with no result line.
 """
@@ -2272,6 +2285,211 @@ def streamed_phase(torch, ep, packed, engine_torch, tmp: str, card: str,
     return out
 
 
+def store_phase(torch, ep, packed, engine_torch, tmp: str, card: str,
+                main: dict, streamed: dict, cfg2: dict, cohort,
+                dev) -> dict:
+    """Phase 19: the stack read from the store on every pass. Under phase
+    18's kind of ballast, and with ``availmem_gb`` below the stack, the gate
+    streams the stack and builds no host stack: a reader thread fills two
+    page-locked staging buffers from the store. Phase 6's cohort: K·V held
+    to the resident one, to the pinned-streamed one at the same chunking
+    and to itself, one pass timed beside phase 18's pinned pass with the
+    reader's rate; ``am()`` through the normal entry point on ``cohort``
+    (phase 12's 50 000 x 65 536, p cut from phase 6's 262 144), every
+    launch against its plain version; BASELINE config 2 on the exact engine
+    from an unpacked copy of phase 8's store, whose int8 rows are packed on
+    the card. Every store was written in this run, so the page cache is
+    warm."""
+    from eagleeverything_tpu_torch.io.genostore import GenotypeStore
+    c = main["cohort"]
+    n, p = c.n, c.p
+    phase(f"19. stack read from the store on every pass: K3 on phase 6's "
+          f"cohort ({n} x {p}), am() on {cohort.n} x {cohort.p}, and "
+          "BASELINE config 2 from an unpacked store (exact engine), each "
+          "under a ballast and with availmem_gb below its stack")
+    print(card)
+    print("page cache: warm (every store was written earlier in this run)")
+    base = ep.EagleConfig()
+    target, stack_bytes = gate_target(torch, engine_torch, base, c.store_dir,
+                                      dev, matfree=True)
+    cfg = ep.EagleConfig(availmem_gb=round(0.6 * stack_bytes / 1e9, 3))
+    res = engine_torch.TiledScan(engine_torch.StoreTileSource(c.store_dir),
+                                 base, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(19)
+    kv = {}
+    for r in (8, 128):
+        V = torch.randn((n, r), generator=gen, device=dev)
+        kv[r] = {"V": V, "ref": res._device_kv(V)}
+    del res
+    torch.cuda.empty_cache()
+    out = {"stack_bytes": stack_bytes, "availmem_gb": cfg.availmem_gb}
+    with ballast(torch, dev, target):
+        pin = engine_torch.TiledScan(
+            engine_torch.StoreTileSource(c.store_dir), base, dev)
+        check(pin.stack_info()["host"] == "pinned", "under the default "
+              f"availmem_gb the stack is not pinned: {pin.stack_info()}")
+        for r, k in kv.items():
+            k["pinned"] = pin._device_kv(k["V"]).cpu()
+        del pin
+        torch.cuda.empty_cache()
+        st = engine_torch.TiledScan(engine_torch.StoreTileSource(c.store_dir),
+                                    cfg, dev)
+        gate = st.stack_info()
+        print(f"availmem_gb {cfg.availmem_gb} for the {stack_bytes / 1e9:.3f}"
+              f" GB stack: {gate['mode']} from the {gate['host']}, "
+              f"{gate['chunks']} chunks of {gate['chunk_rows']} rows, "
+              f"{gate['slots']} slots", flush=True)
+        check(gate["mode"] == "streamed" and gate["host"] == "store"
+              and gate["chunks"] >= 3, f"the gate did not read the stack "
+              f"from the store in 3 chunks or more: {gate}")
+        for r, k in kv.items():
+            got = st._device_kv(k["V"])     # the first pass: the means
+            again = st._device_kv(k["V"])
+            torch.cuda.synchronize()
+            check(torch.equal(got, again), "the store-streamed K·V is not "
+                  f"bitwise repeatable at r={r}")
+            check(torch.equal(got.cpu(), k["pinned"]), "the store-streamed "
+                  f"K·V differs from the pinned-streamed one at r={r}")
+            k["err"], k["rel"] = rel_err(torch, got, k["ref"])
+            check(k["rel"] <= 1e-5, f"the store-streamed K·V is off the "
+                  f"resident one at r={r}: rel {k['rel']:.3e}")
+            del got, again
+        for r, k in kv.items():
+            passes, rb, rs = st.stream_passes, st.read_bytes, st.read_s
+            _, ms = timed(torch, lambda: st._device_kv(k["V"]), 5, 0)
+            k.update(store_ms=ms, pinned_ms=streamed["kv"][r]["streamed_ms"],
+                     read_gb_s=(st.read_bytes - rb) / (st.read_s - rs) / 1e9,
+                     pass_gb_s=stack_bytes / ms / 1e6)
+            check(st.stream_passes - passes == 5, "a timed K·V was not one "
+                  "pass")
+            print(f"K3 at r={r}: read from the store {ms:.2f} ms a pass "
+                  f"({k['pass_gb_s']:.2f} GB/s of stack), pinned (phase 18) "
+                  f"{k['pinned_ms']:.2f} ms; the reader "
+                  f"{k['read_gb_s']:.2f} GB/s while it reads; vs resident: "
+                  f"max abs err {k['err']:.3e}, rel {k['rel']:.3e}; bitwise "
+                  "equal to the pinned-streamed K·V and over two calls",
+                  flush=True)
+        info = st.stack_info()
+        print(f"page-locked host memory {info['host_bytes'] / 1e9:.3f} GB "
+              f"(two staging buffers; availmem_gb {cfg.availmem_gb}); "
+              f"{info['read_bytes'] / 1e9:.2f} GB read in "
+              f"{info['read_s']:.2f} s over {info['stream_passes']} passes",
+              flush=True)
+        check(st._pstack is None, "a host stack was built")
+        check(0 < info["host_bytes"] <= cfg.availmem_gb * 1e9,
+              f"{info['host_bytes']} B page-locked over availmem_gb")
+        check(info["read_bytes"] == info["stream_passes"] * p * (-(-n // 4)),
+              "a pass did not read every row of the store once")
+        del st
+        torch.cuda.empty_cache()
+    out.update(kv={r: {k: v for k, v in d.items()
+                       if k not in ("V", "ref", "pinned")}
+                   for r, d in kv.items()}, host_bytes=info["host_bytes"])
+
+    # am() through the normal entry point, from the store
+    target_m, stack_m = gate_target(torch, engine_torch, base,
+                                    cohort.store_dir, dev, matfree=True)
+    cfg_m = ep.EagleConfig(availmem_gb=round(0.5 * stack_m / 1e9, 3))
+    handle = ep.GenoHandle(n=cohort.n, p=cohort.p, source="store_cohort",
+                           store_dir=cohort.store_dir)
+    log = os.path.join(tmp, "store.jsonl")
+    rec = LaunchRecorder(packed, streamed=True)
+    with ballast(torch, dev, target_m):
+        res_m, wall, launches = run_counted(torch, packed, lambda: ep.am(
+            "y", handle, {"y": cohort.y}, maxit=3, engine="auto",
+            config=cfg_m, log_jsonl=log), rec)
+    events = read_log(log)
+    gate, end = stack_events(events)
+    phases = scan_phases(events)
+    print(f"am(engine='auto') from the store on {cohort.n} x {cohort.p} "
+          f"(availmem_gb {cfg_m.availmem_gb} for its {stack_m / 1e9:.3f} GB "
+          f"stack): {wall:.1f} s; phases "
+          + ", ".join(f"{k} " + " / ".join(f"{w:.2f}" for w in v)
+                      for k, v in phases.items())
+          + f" s; {end['stream_passes']} passes through {gate['chunks']} "
+          f"chunks of {gate['chunk_rows']} rows, "
+          f"{end['read_bytes'] / 1e9:.1f} GB read in {end['read_s']:.1f} s "
+          f"({end['read_bytes'] / end['read_s'] / 1e9:.2f} GB/s while "
+          f"reading), {end['h2d_bytes'] / 1e9:.1f} GB copied, "
+          f"{gate['host_bytes'] / 1e9:.3f} GB page-locked; launches "
+          f"{launches}; selected {res_m.indices} (planted "
+          f"{cohort.qtl_idx.tolist()})", flush=True)
+    check(gate["mode"] == "streamed" and gate["host"] == "store"
+          and gate["chunks"] >= 3, f"am() did not read the store: {gate}")
+    check(end["read_bytes"] == end["stream_passes"] * cohort.p
+          * (-(-cohort.n // 4)), "am()'s passes did not each read the store")
+    check(end["h2d_bytes"] == end["stream_passes"] * stack_m,
+          "am()'s passes did not each copy the whole stack")
+    check(0 < end["host_bytes"] <= cfg_m.availmem_gb * 1e9,
+          "am() held more page-locked memory than availmem_gb")
+    check(len(res_m.indices) >= 1, "the store-streamed scan selected nothing")
+    check(set(res_m.indices) <= set(int(q) for q in cohort.qtl_idx),
+          f"selected SNPs {res_m.indices} are not all planted QTL")
+    check(all(math.isfinite(v) for v in res_m.extbic_path),
+          "non-finite extBIC on the store-streamed scan")
+    for name in KERNELS:
+        check(launches[name] >= 1,
+              f"{name} was never launched by the store-streamed am()")
+    last = cohort.p - (gate["chunks"] - 1) * gate["chunk_rows"]
+    held = {(key[0], key[2]) for key in rec.kept}
+    kept = kept_checks(torch, packed, rec.kept, "the store-streamed am()")
+    rec.kept.clear()
+    for name in LaunchRecorder.NAMES:
+        check({(name, gate["chunk_rows"]), (name, last)} <= held,
+              f"{name}: the store-streamed am()'s launches held against the "
+              f"plain version miss a chunk length ({sorted(held)})")
+    out.update(wall_s=wall, launches=launches, gate=gate,
+               passes=end["stream_passes"], read_bytes=end["read_bytes"],
+               read_s=end["read_s"], phases=phases, kept_rel_err=kept,
+               indices=res_m.indices)
+
+    # config 2 on the exact engine from an unpacked store: int8 rows, packed
+    # on the card chunk by chunk
+    c2 = cfg2["cohort"]
+    d8 = os.path.join(tmp, "config2_int8")
+    t0 = time.perf_counter()
+    src = GenotypeStore.open(c2.store_dir)
+    GenotypeStore.create_from_snp_blocks(d8, src.iter_tiles(8192), n=c2.n,
+                                         p=c2.p, n_shards=src.n_shards)
+    print(f"phase 8's store copied unpacked (int8) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    target2, stack2 = gate_target(torch, engine_torch, base, d8, dev,
+                                  matfree=False)
+    cfg2s = ep.EagleConfig(availmem_gb=round(0.5 * stack2 / 1e9, 4))
+    h2 = ep.GenoHandle(n=c2.n, p=c2.p, source="config2_int8", store_dir=d8)
+    log2 = os.path.join(tmp, "store_exact.jsonl")
+    with ballast(torch, dev, target2):
+        res2, wall2, launches2 = run_counted(torch, packed, lambda: ep.am(
+            "y", h2, {"y": c2.y}, maxit=10, engine="auto", config=cfg2s,
+            log_jsonl=log2))
+    gate2, _ = stack_events(read_log(log2))
+    gap2 = rel_gap(res2.extbic_path, cfg2["extbic_path"])
+    print(f"exact am(engine='auto') on config 2 from its unpacked store: "
+          f"{wall2:.2f} s (phase 8: {cfg2['wall_s']:.2f} s); "
+          f"{gate2['rows']} rows packed on the card, {gate2['chunks']} chunks"
+          f" of {gate2['chunk_rows']} rows, {gate2['stream_passes']} passes, "
+          f"{gate2['read_bytes'] / 1e9:.2f} GB read, "
+          f"{gate2['host_bytes'] / 1e9:.4f} GB page-locked (availmem_gb "
+          f"{cfg2s.availmem_gb}); selected {res2.indices} (phase 8: "
+          f"{cfg2['indices']}), extBIC gap {gap2:.2e}; packed-stack launches "
+          f"{launches2}", flush=True)
+    check(gate2["mode"] == "streamed" and gate2["host"] == "store"
+          and gate2["rows"] == "int8", f"config 2 did not read int8 rows "
+          f"from the store: {gate2}")
+    check(0 < gate2["host_bytes"] <= cfg2s.availmem_gb * 1e9,
+          "config 2 held more page-locked memory than availmem_gb")
+    check(res2.indices == cfg2["indices"],
+          "the exact scan from the store selected other SNPs than phase 8")
+    check(gap2 <= 1e-6, f"the exact extBIC from the store is off phase 8's: "
+          f"{gap2:.2e}")
+    check(not any(launches2.values()),
+          f"the exact engine launched packed-stack kernels: {launches2}")
+    out.update(exact_wall_s=wall2, exact_launches=launches2, exact_gap=gap2,
+               exact_gate=gate2)
+    return out
+
+
 def run(args) -> None:
     import torch
 
@@ -2323,8 +2541,10 @@ def run(args) -> None:
             min(600.0, LIMIT_S - (time.perf_counter() - t_start)))
         streamed = streamed_phase(torch, ep, packed, engine_torch, tmp, card,
                                   main, cfg2, dev)
+        store = store_phase(torch, ep, packed, engine_torch, tmp, card,
+                            main, streamed, cfg2, zmat["cohort"], dev)
 
-    phase("19. kernels")
+    phase("20. kernels")
     by_path = {"am_matfree": main["launches"],
                "summary_am_matfree": flow["summary_matfree_launches"],
                "am_matfree_zmat": zmat["launches"],
@@ -2333,6 +2553,7 @@ def run(args) -> None:
     for r, out in enumerate(ranks["ranks"]):
         by_path[f"am_matfree_rank{r}_of_2"] = out["matfree"]["launches"]
     by_path["am_matfree_streamed"] = streamed["launches"]
+    by_path["am_matfree_store"] = store["launches"]
     w1 = world1["warm"]
     print(f"world 1 (NCCL): am(engine='sharded') {world1['wall_s']:.1f} s, "
           f"mmt_psum {w1['mmt_psum']['ms']:.3f} ms, "
@@ -2364,6 +2585,17 @@ def run(args) -> None:
           + f"; idle share of a traced iteration "
           f"{streamed['trace'].get('device_idle_share', float('nan')):.1%}; "
           f"exact config 2 {streamed['exact_wall_s']:.2f} s")
+    print(f"stack read from the store ({card}): am() on "
+          f"{store['gate']['chunks']} chunks of {store['gate']['chunk_rows']}"
+          f" rows {store['wall_s']:.1f} s, {store['passes']} passes, "
+          f"{store['read_bytes'] / 1e9:.1f} GB read at "
+          f"{store['read_bytes'] / store['read_s'] / 1e9:.2f} GB/s while "
+          "reading; K3 a pass on phase 6's cohort "
+          + ", ".join(f"r={r}: {k['store_ms']:.2f} ms (pinned "
+                      f"{k['pinned_ms']:.2f} ms), reader {k['read_gb_s']:.2f}"
+                      " GB/s" for r, k in store["kv"].items())
+          + f"; {store['host_bytes'] / 1e9:.3f} GB page-locked; exact config "
+          f"2 from int8 rows {store['exact_wall_s']:.2f} s")
     entries = []
     head = 64
     for name, meta in KERNELS.items():
@@ -2384,7 +2616,8 @@ def run(args) -> None:
             "launches": main["launches"][name],
             "launches_by_path": {
                 **{k: v[name] for k, v in by_path.items()},
-                "exact_streamed": streamed["exact_launches"][name]},
+                "exact_streamed": streamed["exact_launches"][name],
+                "exact_store": store["exact_launches"][name]},
             "summary_am_matfree_rel_err":
                 flow["summary_matfree_rel_err"][name],
             "two_rank_rel_err": max(o["matfree"]["rel_err"][name]

@@ -328,6 +328,30 @@ class GenotypeStore:
                 t1 = min(t0 + tile_snps, b)
                 yield t0, np.asarray(raw[t0 - s0 : t1 - s0])
 
+    def read_rows(self, lo: int, hi: int, out: torch.Tensor) -> None:
+        """Copy the store's own bytes of SNP rows [lo, hi) — 2-bit packed
+        (uint8), or int8 genotypes in an unpacked store — into the first
+        ``row_bytes`` columns of ``out`` ((hi - lo, ≥ row_bytes) of that
+        dtype, on the host), the rest of each row untouched. A chunk that
+        crosses shard boundaries is assembled from each shard's part; only
+        the shards that intersect [lo, hi) are opened, and each call maps
+        its range anew, so a shard file that is missing or too short raises
+        here. The copy is torch's parallel CPU copy from the mapped pages."""
+        rb = self._row_bytes
+        dtype = np.uint8 if self.packed else np.int8
+        for k in range(self.n_shards):
+            s0, s1 = self.shard_offsets[k], self.shard_offsets[k + 1]
+            if s1 <= lo or s0 >= hi:
+                continue
+            a, b = max(s0, lo), min(s1, hi)
+            # copy-on-write: a writable view of the file's pages (nothing
+            # is written), which torch.from_numpy takes without a warning
+            mm = np.memmap(os.path.join(self.dir, f"shard_{k:05d}.bin"),
+                           dtype=dtype, mode="c", offset=(a - s0) * rb,
+                           shape=(b - a, rb))
+            out[a - lo : b - lo, :rb].copy_(torch.from_numpy(mm))
+            del mm
+
     def column(self, j: int) -> np.ndarray:
         """One genotype column (SNP j) — reference: ``extract_geno_rcpp``
         (SURVEY.md §3.3): a single sequential row read in SNP-major layout."""
@@ -344,10 +368,10 @@ class GenotypeStore:
         return out
 
 
-def pack2(block) -> np.ndarray:
-    """(b, n) int8 {0,1,2,-9} → (b, ⌈n/4⌉) uint8: genotype 4c+k at bits 2k
-    of byte c, missing = code 3, the pad genotypes of a row's last byte
-    code 0. A torch tensor is packed on its own device."""
+def _pack2_bytes(block) -> torch.Tensor:
+    """(b, n) int8 {0,1,2,-9} → (b, ⌈n/4⌉) uint8 on the block's device:
+    genotype 4c+k at bits 2k of byte c, missing = code 3, the pad genotypes
+    of a row's last byte code 0."""
     g = block if isinstance(block, torch.Tensor) else torch.from_numpy(
         np.ascontiguousarray(block, dtype=np.int8))
     b, n = g.shape
@@ -355,8 +379,31 @@ def pack2(block) -> np.ndarray:
     codes = torch.zeros((b, n4), dtype=torch.uint8, device=g.device)
     codes[:, :n] = torch.where(g == MISSING, 3, g.to(torch.int8))
     q = codes.view(b, n4 // 4, 4)
-    out = q[..., 0] | (q[..., 1] << 2) | (q[..., 2] << 4) | (q[..., 3] << 6)
-    return out.cpu().numpy()
+    return q[..., 0] | (q[..., 1] << 2) | (q[..., 2] << 4) | (q[..., 3] << 6)
+
+
+def pack2(block) -> np.ndarray:
+    """The store's 2-bit bytes of a (b, n) int8 block, (b, ⌈n/4⌉) uint8 on
+    the host (:func:`_pack2_bytes`). A torch tensor is packed on its own
+    device."""
+    return _pack2_bytes(block).cpu().numpy()
+
+
+def pack2_words(block: torch.Tensor, nw: int,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The device form of :func:`pack2`: a (b, n) int8 tensor → its (b, nw)
+    int32 words on the tensor's own device, the little-endian view of
+    pack2's bytes with every byte past a row's ⌈n/4⌉ set to 0x55 (four het
+    codes, W = 0) — the packed stack's rows, bit for bit. Written into
+    ``out`` (contiguous (b, nw) int32) when given."""
+    byts = _pack2_bytes(block)
+    if out is None:
+        out = torch.empty((block.shape[0], nw), dtype=torch.int32,
+                          device=block.device)
+    u8 = out.view(torch.uint8)
+    u8[:, byts.shape[1]:] = 0x55
+    u8[:, : byts.shape[1]] = byts
+    return out
 
 
 def unpack2(raw: np.ndarray, n: int) -> np.ndarray:

@@ -1206,7 +1206,7 @@ def forward_select_matfree(
         Z = np.asarray(Z, dtype=np.float64)
 
     # the first kernel matvec (the s0 estimate) builds the stack (and
-    # pins it on the host when it streams)
+    # pins it on the host when it streams from there)
     with Phase(logger, "context"):
         ctx = make_context(backend, n, Z=Z, probes=probes,
                            lanczos_m=lanczos_m, s0=s0)
@@ -1357,7 +1357,9 @@ def forward_select_matfree(
 
     logger.event("stack_passes", total=backend.stack_passes,
                  stream_passes=backend.stream_passes,
-                 h2d_bytes=backend.h2d_bytes)
+                 h2d_bytes=backend.h2d_bytes,
+                 read_bytes=backend.read_bytes, read_s=backend.read_s,
+                 host_bytes=backend.stack_info()["host_bytes"])
     logger.close()
     return AMResult(
         indices=selected, extbic_path=extbic_path,
@@ -1467,7 +1469,7 @@ def forward_select_matfree_multi(
                         is_host0=distributed.is_host0())
 
     # the first kernel matvec (the s0 estimate) builds the stack (and
-    # pins it on the host when it streams)
+    # pins it on the host when it streams from there)
     with Phase(logger, "context"):
         ctx = make_context(backend, n, probes=probes, lanczos_m=lanczos_m,
                            s0=s0)
@@ -1624,7 +1626,9 @@ def forward_select_matfree_multi(
 
     logger.event("stack_passes", total=backend.stack_passes,
                  stream_passes=backend.stream_passes,
-                 h2d_bytes=backend.h2d_bytes)
+                 h2d_bytes=backend.h2d_bytes,
+                 read_bytes=backend.read_bytes, read_s=backend.read_s,
+                 host_bytes=backend.stack_info()["host_bytes"])
     logger.close()
     out = []
     for t in range(R):

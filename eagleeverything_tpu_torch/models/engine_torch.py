@@ -4,9 +4,11 @@ engine's forward selection.
 Counterpart of the JAX package's models/engine_jax.py. The whole genotype
 matrix (in a multi-process run: the rank's SNP range, MultiHostTiledScan)
 is one int32 packed stack (four genotypes a byte, sixteen a word): on the
-device when it fits there beside what the scan holds, else in page-locked
-host memory, streamed through the device chunk by chunk on every pass
-(:func:`_stack_plan`, :meth:`TiledScan._stack_chunks`). Two engines read it:
+device when it fits there beside what the scan holds, else streamed through
+the device chunk by chunk on every pass (:func:`_stack_plan`,
+:meth:`TiledScan._stack_chunks`), from page-locked host memory when it fits
+``availmem_gb``, else read anew from the source on every pass by a reader
+thread, as the JAX package's producer thread reads it. Two engines read it:
 
 - the matrix-free engine (models/bigscan), whose every pass over the stack
   is one of the two hand-written kernels of ops/packed: ``kernel_matvec``
@@ -29,14 +31,17 @@ fp32. The CG solve keeps its X/R/P block on the device and the host reads
 only the (r,) residual norms, every other step — the form the JAX package
 ran on the TPU; the Lanczos recurrence reads nothing until its last step.
 A one-hot Zmat enters both as a record → individual index (a segment sum
-and a gather around the kernel matvec). Every source is packed into the same stack: a 2-bit store
-ships its raw bytes, and a dense handle, an unpacked store or a row-masked
-source is packed on the host first.
+and a gather around the kernel matvec). Every source is packed into the
+same stack: a 2-bit store ships its raw bytes, and a dense handle, an
+unpacked store or a row-masked source is packed on the host first — or, read
+from the source on every pass, its int8 rows are packed on the device.
 """
 
 from __future__ import annotations
 
 import hashlib
+import queue
+import threading
 import time
 from typing import Iterator, NamedTuple, Optional
 
@@ -63,10 +68,14 @@ MISSING = -9
 
 
 class TileSource:
-    """Yields SNP-major int8 tiles (b, n_kept), packed tiles and columns."""
+    """Yields SNP-major int8 tiles (b, n_kept), packed tiles and columns,
+    and fills a buffer with a range of rows (:meth:`read_rows`)."""
 
     n: int
     p: int
+    # what read_rows gives: "int8" genotypes (n bytes a row), or "raw", a
+    # 2-bit store's own bytes (⌈n/4⌉ a row)
+    row_format = "int8"
 
     def tiles(self, tile_snps: int) -> Iterator[tuple[int, np.ndarray]]:
         raise NotImplementedError
@@ -94,6 +103,15 @@ class TileSource:
         for j0, tile in self.tiles_in(lo, hi, tile_snps):
             yield j0, genostore.pack2(tile)
 
+    def read_rows(self, lo: int, hi: int, out: torch.Tensor) -> None:
+        """Fill ``out`` with SNP rows [lo, hi) as :attr:`row_format` says:
+        int8 (hi - lo, n), or the raw bytes in the first ⌈n/4⌉ columns of a
+        uint8 (hi - lo, ≥ ⌈n/4⌉) buffer. This form copies the int8 tiles of
+        :meth:`tiles_in`."""
+        for j0, tile in self.tiles_in(lo, hi, hi - lo):
+            out[j0 - lo : j0 - lo + tile.shape[0]].copy_(
+                torch.from_numpy(np.ascontiguousarray(tile)))
+
     def column(self, j: int) -> np.ndarray:
         raise NotImplementedError
 
@@ -110,6 +128,9 @@ class DenseTileSource(TileSource):
         for j0 in range(0, self.p, tile_snps):
             yield j0, self._Gt[j0 : j0 + tile_snps]
 
+    def read_rows(self, lo: int, hi: int, out: torch.Tensor) -> None:
+        out.copy_(torch.from_numpy(self._Gt[lo:hi]))
+
     def column(self, j: int) -> np.ndarray:
         return self._Gt[j]
 
@@ -120,6 +141,8 @@ class StoreTileSource(TileSource):
         self._keep = keep
         self.p = self._store.p
         self.n = self._store.n if keep is None else int(len(keep))
+        if self._store.packed and keep is None:
+            self.row_format = "raw"
 
     def tiles(self, tile_snps: int):
         for j0, tile in self._store.iter_tiles(tile_snps):
@@ -153,6 +176,14 @@ class StoreTileSource(TileSource):
             return self._store.iter_raw_tiles_in(lo, hi, tile_snps)
         return super().packed_tiles_in(lo, hi, tile_snps)
 
+    def read_rows(self, lo: int, hi: int, out: torch.Tensor) -> None:
+        """With every individual kept, the store's own bytes (2-bit or
+        int8) straight from its shards; with a mask, the decoded tiles."""
+        if self._keep is None:
+            self._store.read_rows(lo, hi, out)
+        else:
+            super().read_rows(lo, hi, out)
+
     def column(self, j: int) -> np.ndarray:
         col = self._store.column(j)
         return col if self._keep is None else col[self._keep]
@@ -167,6 +198,7 @@ class RangeTileSource(TileSource):
         self.base, self.lo, self.hi = base, lo, hi
         self.n = base.n
         self.p = hi - lo
+        self.row_format = base.row_format
 
     def tiles(self, tile_snps: int):
         for j0, tile in self.base.tiles_in(self.lo, self.hi, tile_snps):
@@ -176,6 +208,9 @@ class RangeTileSource(TileSource):
         for j0, raw in self.base.packed_tiles_in(self.lo, self.hi,
                                                  tile_snps):
             yield j0 - self.lo, raw
+
+    def read_rows(self, lo: int, hi: int, out: torch.Tensor) -> None:
+        self.base.read_rows(self.lo + lo, self.lo + hi, out)
 
     def column(self, j: int) -> np.ndarray:
         return self.base.column(self.lo + j)
@@ -434,18 +469,24 @@ class StackPlan(NamedTuple):
     # the widest K1 block of a stat-row pass (matfree_stat_rows_multi
     # sub-batches its traits under it); 0 for the exact engine
     stat_cols: int = MULTI_STAT_COLS
+    # where a pass reads the stack from: "device" (resident), "pinned" (the
+    # whole stack in page-locked host memory) or "store" (the source, read
+    # anew every pass through two page-locked staging buffers)
+    host: str = "pinned"
 
 
 def stack_reserve(n: int, p: int, config: EagleConfig, sms: int,
                   cache_device: bool, stat_cols: int,
-                  tile_snps: int) -> tuple[int, int]:
+                  tile_snps: int, int8_rows: bool = False
+                  ) -> tuple[int, int]:
     """Device bytes a scan holds beside the packed stack, as (fixed, a
     row): the fixed part does not depend on how many stack rows a pass
     hands the kernels at once, the other grows with them (all p rows when
     the stack is resident, one chunk when it streams). ``stat_cols`` is
     the widest K1 block of the matrix-free scan's stat-row passes, 0 for
     the exact engine, which runs neither K1 nor K2 and holds no Krylov
-    state. Read off the code:
+    state. ``int8_rows``: the stack streams from a source of int8 rows,
+    which are packed on the device. Read off the code:
 
     fixed, every scan
       - the per-SNP means and up to RESULT_COLS f32 results a SNP;
@@ -475,6 +516,10 @@ def stack_reserve(n: int, p: int, config: EagleConfig, sms: int,
         half, and the stat rows' reduction of it: two f32 rows;
       - K2's two bf16 pieces of its operand at KRYLOV_COLS.
     The exact engine holds nothing a row beyond the stack itself.
+    a row, either engine, with ``int8_rows``
+      - the chunk's int8 slot (n bytes) and the pack's temporaries
+        (genostore.pack2_words: at most three bytes a genotype of the row
+        padded to its words, 48·nw).
 
     At 50 000 × 262 144 the matrix-free reserve is 2.82 GB fixed and
     5.7 kB a row at ``stat_cols`` = MULTI_STAT_COLS (4.31 GB with the rows
@@ -483,12 +528,13 @@ def stack_reserve(n: int, p: int, config: EagleConfig, sms: int,
     single-trait matrix-free am() peaks."""
     itemsize = 2 if config.compute_dtype == "bfloat16" else 4
     fixed = p * (1 + RESULT_COLS) * 4
+    int8_row = n + 48 * packed.words_per_row(n) if int8_rows else 0
     if not stat_cols:
         square = 4 if n > config.host_eigh_max_n else 1
         fixed += square * n * n * 4 + tile_snps * n * (itemsize + 4)
         if cache_device:
             fixed += p * n * (itemsize + 4)
-        return int(fixed), 0
+        return int(fixed), int8_row
     cache = config.matfree_cache_gb * 1e9 / 2
     probes = (-(-config.matfree_diag_probes // 8) * 8
               * config.matfree_lanczos_m * n * 4)
@@ -497,14 +543,23 @@ def stack_reserve(n: int, p: int, config: EagleConfig, sms: int,
               + 8 * n * KRYLOV_COLS * 4
               + n * stat_cols * (4 + 3 * 2)
               + nsplit * n * KRYLOV_COLS * 4)
-    per_row = 2 * max(stat_cols, KRYLOV_COLS) * 4 + 2 * KRYLOV_COLS * 2
+    per_row = (2 * max(stat_cols, KRYLOV_COLS) * 4 + 2 * KRYLOV_COLS * 2
+               + int8_row)
     return int(fixed), per_row
+
+
+def _whole_chunk(rows: int, tile_snps: int) -> int:
+    """``rows`` rounded down to whole tiles, or to 128 rows when not one
+    tile fits."""
+    return (rows // tile_snps * tile_snps if rows >= tile_snps
+            else rows // 128 * 128)
 
 
 def _stack_plan(p: int, nw: int, n: int, device: torch.device,
                 config: EagleConfig, tile_snps: int, cache_device: bool,
-                matfree: bool) -> StackPlan:
-    """Resident or streamed, and the chunk of a streamed stack.
+                matfree: bool, row_format: str = "raw") -> StackPlan:
+    """Resident or streamed, the chunk of a streamed stack, and where a
+    streamed stack is read from.
 
     Resident when the stack and the scan's reserve (:func:`stack_reserve`)
     fit the card's free memory: ``torch.cuda.mem_get_info``'s free plus
@@ -519,9 +574,18 @@ def _stack_plan(p: int, nw: int, n: int, device: torch.device,
     fixed reserve, a chunk a multiple of ``tile_snps`` rows (of 128 when
     not even one tile fits), so that the exact engine's W tiles fall as
     they do on a resident stack. On the CPU the stack is always resident.
-    Raises when not even two 128-row chunks fit."""
+
+    A streamed stack lives in page-locked host memory ("pinned") when its
+    p·nw·4 bytes fit ``config.availmem_gb``. Otherwise ("store") every
+    pass reads it from the source (TileSource.read_rows, in its
+    ``row_format``) into two page-locked staging buffers of a chunk each,
+    which must fit ``availmem_gb`` too: the chunk shrinks, in the same
+    whole units, until they do. Int8 rows are packed on the device, so
+    their slot and the pack's temporaries count a row there. Raises when
+    not even two 128-row chunks fit the card, or two 128-row staging
+    buffers the host budget."""
     if device.type != "cuda":
-        return StackPlan("resident", p, 0, 0, 0)
+        return StackPlan("resident", p, 0, 0, 0, host="device")
     free, _ = torch.cuda.mem_get_info(device)
     free += (torch.cuda.memory_reserved(device)
              - torch.cuda.memory_allocated(device))
@@ -532,19 +596,102 @@ def _stack_plan(p: int, nw: int, n: int, device: torch.device,
                                        width, tile_snps)
         reserve = fixed + per_row * p
         if p * row + reserve <= free:
-            return StackPlan("resident", p, 0, free, reserve, width)
+            return StackPlan("resident", p, 0, free, reserve, width,
+                             "device")
+    budget = int(config.availmem_gb * 1e9)
+    host, staged = "pinned", p
+    if p * row > budget:
+        host = "store"
+        stage_row = row if row_format == "raw" else n
+        staged = _whole_chunk(budget // (2 * stage_row), tile_snps)
+        if staged < 128:
+            raise ValueError(
+                f"the packed stack of {n} individuals x {p} SNPs "
+                f"({p * row / 1e9:.3f} GB) exceeds availmem_gb "
+                f"({config.availmem_gb} GB), and the two staging buffers "
+                f"of 128 rows that read it from the store need "
+                f"{2 * 128 * stage_row / 1e9:.3f} GB of it")
+        if row_format != "raw":
+            fixed, per_row = stack_reserve(n, p, config, sms, cache_device,
+                                           width, tile_snps, True)
     for slots in (3, 2):
-        c = max(free - fixed, 0) // (slots * row + per_row)
-        c = c // tile_snps * tile_snps if c >= tile_snps else c // 128 * 128
+        c = _whole_chunk(max(free - fixed, 0) // (slots * row + per_row),
+                         tile_snps)
         if c >= 128:
-            return StackPlan("streamed", min(c, p), slots, free, reserve,
-                             width)
+            return StackPlan("streamed", min(c, staged, p), slots, free,
+                             reserve, width, host)
     raise ValueError(
         f"the packed stack of {n} individuals x {p} SNPs "
         f"({p * row / 1e9:.3f} GB) can neither stay on {device} nor stream "
         f"through it: {free / 1e9:.3f} GB free, {fixed / 1e9:.3f} GB of it "
         f"held for the scan, and two chunks of 128 rows need "
         f"{2 * 128 * row / 1e9:.3f} GB more")
+
+
+class _StoreReader:
+    """The producer of one pass over a stack read from its source
+    (reference: engine_jax.TiledScan._device_tiles' producer thread and its
+    queue of 2): a thread reads each chunk's rows [lo, hi) into a free one
+    of the two staging buffers (TileSource.read_rows) and hands its index
+    over, in chunk order. It makes no CUDA call but one: before it refills
+    a buffer it waits for the event of the copy that last read it
+    (``done``, set by :meth:`release` and kept by the scan across passes).
+    An exception in the thread is raised by :meth:`get` in the caller;
+    :meth:`close` stops the thread and joins it, also mid-pass."""
+
+    def __init__(self, src: TileSource, staging: list[torch.Tensor],
+                 done: list, ranges: list[tuple[int, int]]):
+        self.read_bytes = 0
+        self.read_s = 0.0
+        self._src, self._staging, self._done = src, staging, done
+        self._raw = src.row_format == "raw"
+        self._row_bytes = -(-src.n // 4) if self._raw else src.n
+        self._full: queue.Queue = queue.Queue()
+        self._free: queue.Queue = queue.Queue()
+        for i in range(len(staging)):
+            self._free.put(i)
+        self._stop = False
+        self._thread = threading.Thread(target=self._run, args=(ranges,),
+                                        name="eagle-store-reader",
+                                        daemon=True)
+        self._thread.start()
+
+    def _run(self, ranges) -> None:
+        try:
+            for lo, hi in ranges:
+                i = self._free.get()
+                if i is None or self._stop:
+                    return
+                if self._done[i] is not None:
+                    self._done[i].synchronize()
+                t0 = time.perf_counter()
+                buf = self._staging[i][: hi - lo]
+                self._src.read_rows(lo, hi,
+                                    buf.view(torch.uint8) if self._raw
+                                    else buf)
+                self.read_s += time.perf_counter() - t0
+                self.read_bytes += (hi - lo) * self._row_bytes
+                self._full.put(i)
+        except BaseException as e:   # surfaced to the caller by get()
+            self._full.put(e)
+
+    def get(self) -> int:
+        """The staging buffer that holds the next chunk."""
+        item = self._full.get()
+        if isinstance(item, BaseException):
+            raise item
+        return item
+
+    def release(self, i: int, done) -> None:
+        """Hand buffer ``i`` back; ``done`` (a CUDA event, or None) is
+        complete once nothing reads the buffer any more."""
+        self._done[i] = done
+        self._free.put(i)
+
+    def close(self) -> None:
+        self._stop = True
+        self._free.put(None)
+        self._thread.join()
 
 
 class TiledScan:
@@ -555,16 +702,18 @@ class TiledScan:
     eigenbasis sweeps over recoded W tiles.
 
     The stack stays on the card when it fits beside what the scan holds
-    there (:func:`_stack_plan`); otherwise it lives in page-locked host
-    memory and every pass streams it through the card chunk by chunk
-    (:meth:`_stack_chunks`), K1/K2 running on each chunk while the next is
-    copied. Every primitive reads the stack through that one iterator, so
-    the engines above run unchanged on either. ``matfree`` says which
+    there (:func:`_stack_plan`); otherwise every pass streams it through
+    the card chunk by chunk (:meth:`_stack_chunks`), K1/K2 running on each
+    chunk while the next is copied: from page-locked host memory when the
+    whole stack fits ``availmem_gb``, else read anew from the source on
+    every pass, as the reference does, through two page-locked staging
+    buffers. Every primitive reads the stack through that one iterator,
+    so the engines above run unchanged on either. ``matfree`` says which
     engine reads it, so that the gate reserves what that engine holds
     beside the stack. The decision (``plan``, ``stack_mode``,
     ``chunk_rows``) and the streaming counters (``stream_passes``,
-    ``h2d_bytes``) are attributes and go to the scan log
-    (:meth:`stack_info`)."""
+    ``h2d_bytes``, ``read_bytes``, ``read_s``) are attributes and go to
+    the scan log (:meth:`stack_info`)."""
 
     def __init__(self, src: TileSource, config: EagleConfig,
                  device: torch.device, matfree: bool = True):
@@ -590,11 +739,15 @@ class TiledScan:
         if self.device.type == "cuda":
             _ieee_fp32()
         self.plan = _stack_plan(src.p, self.nw, src.n, self.device, config,
-                                self.tile_snps, self.cache_device, matfree)
+                                self.tile_snps, self.cache_device, matfree,
+                                src.row_format)
         # passes through the chunk ring, and the bytes they copied to the
-        # card (0 on the CPU, where a chunk is a view of the host stack)
+        # card (0 on the CPU, where a chunk is a host tensor); the bytes the
+        # store reader read from the source and its seconds
         self.stream_passes = 0
         self.h2d_bytes = 0
+        self.read_bytes = 0
+        self.read_s = 0.0
         self.build_s: Optional[float] = None
         self._pstack: Optional[torch.Tensor] = None
         self._pmeans: Optional[torch.Tensor] = None
@@ -602,6 +755,13 @@ class TiledScan:
         self._copy_stream = None
         self._freed: list = []
         self._slot = 0
+        # the store reader's two page-locked staging buffers, the events of
+        # the copies that last read them, and on a card the int8 slot of a
+        # source of int8 rows and the event of the pack that last read it
+        self._staging: Optional[list[torch.Tensor]] = None
+        self._staged: list = [None, None]
+        self._int8_slot: Optional[torch.Tensor] = None
+        self._int8_freed = None
         self._score = (kernels.score_tile_sqrt_bf16
                        if config.compute_dtype == "bfloat16"
                        else kernels.score_tile_sqrt)
@@ -627,17 +787,33 @@ class TiledScan:
             wb[:, : raw.shape[1]] = raw
             dest[j0 : j0 + raw.shape[0]] = torch.from_numpy(wb.view(np.int32))
 
-    def _packed_stack(self) -> torch.Tensor:
+    def _page_locked(self, what: str, shape: tuple[int, int],
+                     dtype: torch.dtype) -> torch.Tensor:
+        """An uninitialised host tensor, page-locked on a card (the copies
+        from it are then asynchronous DMA; from pageable memory each would
+        be a synchronous copy); a failed pin raises ValueError with the
+        sizes."""
+        try:
+            return torch.empty(shape, dtype=dtype,
+                               pin_memory=self.device.type == "cuda")
+        except RuntimeError as e:
+            unit = "words" if dtype == torch.int32 else "bytes"
+            size = shape[0] * shape[1] * dtype.itemsize
+            raise ValueError(
+                f"could not allocate the page-locked {what} of {shape[0]} "
+                f"SNPs x {shape[1]} {unit} ({size / 1e9:.3f} GB) to stream "
+                f"from: {e}") from e
+
+    def _packed_stack(self) -> Optional[torch.Tensor]:
         """The whole source as ONE (p, ⌈⌈n/4⌉/4⌉) int32 stack, built once:
         on the device when resident (into a preallocated buffer, so peak
-        device memory is 1× the packed size), else in page-locked host
-        memory on a card (the copies to it are then asynchronous DMA; from
-        pageable memory each would be a synchronous copy), so a failed pin
-        raises ValueError with the sizes. The per-SNP means are computed
-        with it and stay on the device; a streamed stack computes them
-        chunk by chunk, in one pass through the ring. ``build_s`` times it
-        all."""
-        if self._pstack is not None:
+        device memory is 1× the packed size), in page-locked host memory
+        when it streams from there (a failed pin raises ValueError with the
+        sizes), and not at all when every pass reads it from the source
+        (None). The per-SNP means are computed with it and stay on the
+        device; a streamed stack computes them chunk by chunk, in one pass
+        through the ring. ``build_s`` times it all."""
+        if self._pmeans is not None:
             return self._pstack
         t0 = time.perf_counter()
         p, n = self.src.p, self.src.n
@@ -648,105 +824,166 @@ class TiledScan:
             self._pstack = buf
             self._pmeans = packed.row_means(buf, n)
         else:
-            try:
-                buf = torch.empty((p, self.nw), dtype=torch.int32,
-                                  pin_memory=self.device.type == "cuda")
-            except RuntimeError as e:
-                raise ValueError(
-                    f"could not allocate the page-locked host stack of {p} "
-                    f"SNPs x {self.nw} words ({p * self.nw * 4 / 1e9:.3f} "
-                    f"GB) to stream from: {e}") from e
-            self._build_stack(buf)
-            self._pstack = buf
-            self._pmeans = torch.empty(p, dtype=torch.float32,
-                                       device=self.device)
-            for r0, Wc in self._stack_chunks():
-                self._pmeans[r0 : r0 + Wc.shape[0]] = packed.row_means(Wc, n)
+            if self.plan.host == "pinned":
+                buf = self._page_locked("host stack", (p, self.nw),
+                                        torch.int32)
+                self._build_stack(buf)
+                self._pstack = buf
+            means = torch.empty(p, dtype=torch.float32, device=self.device)
+            for r0, Wc in self._chunks():
+                means[r0 : r0 + Wc.shape[0]] = packed.row_means(Wc, n)
+            self._pmeans = means
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.build_s = time.perf_counter() - t0
-        return buf
+        return self._pstack
 
     def _stack_chunks(self) -> Iterator[tuple[int, torch.Tensor]]:
         """(row0, Wp chunk) over the stack, in row order: the unit every
-        pass reads. Resident: one chunk, the stack itself, no copy.
+        pass reads (the stack and its means are built first). Resident:
+        one chunk, the stack itself, no copy. A chunk is valid until the
+        consumer asks for the next one."""
+        self._packed_stack()
+        yield from self._chunks()
+
+    def _chunks(self) -> Iterator[tuple[int, torch.Tensor]]:
+        """One pass over the stack, as :meth:`_stack_chunks` hands it out.
 
         Streamed on a card (reference: engine_jax.TiledScan._device_tiles'
-        producer thread and queue of 2; here the copy engine is the
-        producer): chunk i+1 is copied from the page-locked host stack into
-        ring slot (i+1) mod k on a copy stream while the kernels run on
-        slot i. A slot is overwritten only after an event that the compute
-        stream records once the last launch reading it is queued (when the
-        consumer asks for the next chunk); the compute stream waits on the
-        copy's event before the kernels read it. The ring is allocated once
-        on the compute stream, and every copy that was issued is ordered
-        before later compute work (also when a consumer stops early), so
-        the allocator can never hand a slot on while a copy still writes
-        it. Slots rotate across passes, so a pass's first copy waits only
-        for the compute that last read its slot. The last chunk is ragged;
-        row slices of the contiguous stack are contiguous, as the kernels'
-        wrappers require. A chunk is valid until the consumer asks for the
-        next one. On the CPU a chunk is a row slice of the host stack.
+        producer thread and queue of 2): each chunk's host rows — a row
+        slice of the page-locked stack, or a staging buffer the store
+        reader (:class:`_StoreReader`) filled on its thread — are copied
+        into ring slot i mod k on a copy stream when the consumer asks for
+        chunk i, so the copy runs under the kernels of chunk i - 1. A slot
+        is overwritten only after an event that the compute stream records
+        once the last launch reading it is queued (when the consumer asks
+        for the next chunk); the compute stream waits on the copy's event
+        before the kernels read it, and a staging buffer goes back to the
+        reader with that event, which the reader waits for before it
+        refills the buffer. Int8 rows are copied into one int8 slot
+        instead and packed into the ring slot on the compute stream
+        (genostore.pack2_words), the copy into the int8 slot waiting for
+        the pack that last read it. The ring is allocated once on the
+        compute stream, and every copy that was issued is waited for by
+        the compute stream before the consumer sees its chunk, so the
+        allocator can never hand a slot on while a copy still writes it.
+        Slots rotate across passes, so a pass's first copy waits only for
+        the compute that last read its slot. The last chunk is ragged; row
+        slices of the contiguous buffers are contiguous, as the kernels'
+        wrappers require. On the CPU a chunk is the host tensor itself (or
+        its words, packed on the host). The reader's thread ends with the
+        pass, also when the consumer stops early or it raised.
 
         ``stream_passes`` counts the passes that reached the end;
-        ``h2d_bytes`` the bytes copied to the card."""
-        Wp = self._packed_stack()
+        ``h2d_bytes`` the bytes copied to the card; ``read_bytes`` and
+        ``read_s`` what the reader read from the source, and its time."""
         if self.stack_mode == "resident":
-            yield 0, Wp
+            yield 0, self._pstack
             return
         p, C = self.src.p, self.chunk_rows
         starts = range(0, p, C)
-        if self.device.type != "cuda":
-            for r0 in starts:
-                yield r0, Wp[r0 : r0 + C]
-            self.stream_passes += 1
-            return
-        if self._ring is None:
+        cuda = self.device.type == "cuda"
+        int8 = self.plan.host == "store" and self.src.row_format != "raw"
+        reader = None
+        if self.plan.host == "store":
+            if self._staging is None:
+                self._staging = [
+                    self._page_locked("staging buffer", (C, self.src.n),
+                                      torch.int8) if int8 else
+                    self._page_locked("staging buffer", (C, self.nw),
+                                      torch.int32).fill_(packed.PAD_WORD)
+                    for _ in range(2)]
+            reader = _StoreReader(self.src, self._staging, self._staged,
+                                  [(r0, min(r0 + C, p)) for r0 in starts])
+        if cuda and self._ring is None:
             self._ring = [torch.empty((C, self.nw), dtype=torch.int32,
                                       device=self.device)
                           for _ in range(self.plan.slots)]
+            if int8:
+                self._int8_slot = torch.empty((C, self.src.n),
+                                              dtype=torch.int8,
+                                              device=self.device)
             self._copy_stream = torch.cuda.Stream(self.device)
             self._freed = [None] * self.plan.slots
-        compute = torch.cuda.current_stream(self.device)
-        copy, ring, k = self._copy_stream, self._ring, len(self._ring)
-        pending: dict[int, tuple[int, torch.cuda.Event]] = {}
-
-        def issue(i: int) -> None:
-            s = (self._slot + i) % k
-            r0 = starts[i]
-            rows = min(C, p - r0)
-            with torch.cuda.stream(copy):
-                if self._freed[s] is not None:
-                    copy.wait_event(self._freed[s])
-                ring[s][:rows].copy_(Wp[r0 : r0 + rows], non_blocking=True)
-                ready = torch.cuda.Event()
-                ready.record(copy)
-            pending[i] = (s, ready)
-            self.h2d_bytes += rows * self.nw * 4
-
+        compute = torch.cuda.current_stream(self.device) if cuda else None
         try:
-            issue(0)
             for i, r0 in enumerate(starts):
-                if i + 1 < len(starts):
-                    issue(i + 1)
-                s, ready = pending.pop(i)
-                compute.wait_event(ready)
+                rows = min(C, p - r0)
+                b = None
+                if reader is None:
+                    host = self._pstack[r0 : r0 + rows]
+                else:
+                    b = reader.get()
+                    host = self._staging[b][:rows]
+                if cuda:
+                    s = (self._slot + i) % len(self._ring)
+                    chunk = self._ring[s][:rows]
+                    done = self._h2d(host, chunk, s, int8)
+                    if b is not None:
+                        reader.release(b, done)
+                elif int8:
+                    chunk = genostore.pack2_words(host, self.nw)
+                    reader.release(b, None)
+                else:
+                    # the consumer reads the staging buffer itself: it goes
+                    # back to the reader when the next chunk is asked for
+                    chunk = host
                 try:
-                    yield r0, ring[s][: min(C, p - r0)]
+                    yield r0, chunk
                 finally:
-                    freed = torch.cuda.Event()
-                    freed.record(compute)
-                    self._freed[s] = freed
+                    if cuda:
+                        freed = torch.cuda.Event()
+                        freed.record(compute)
+                        self._freed[s] = freed
+                    elif b is not None and not int8:
+                        reader.release(b, None)
         finally:
-            for _, ready in pending.values():
-                compute.wait_event(ready)
-            self._slot = (self._slot + len(starts)) % k
+            if reader is not None:
+                reader.close()
+                self.read_bytes += reader.read_bytes
+                self.read_s += reader.read_s
+            if cuda:
+                self._slot = (self._slot + len(starts)) % len(self._ring)
         self.stream_passes += 1
+
+    def _h2d(self, host: torch.Tensor, chunk: torch.Tensor, s: int,
+             int8: bool):
+        """Copy a chunk's page-locked host rows to the card on the copy
+        stream, into ``chunk`` (ring slot ``s``) once the compute that last
+        read the slot is done; int8 rows into the int8 slot once the pack
+        that last read it is done, then packed into ``chunk`` on the
+        compute stream. The compute stream waits for the copy; returns the
+        copy's event."""
+        compute = torch.cuda.current_stream(self.device)
+        copy = self._copy_stream
+        dest = self._int8_slot[: host.shape[0]] if int8 else chunk
+        after = self._int8_freed if int8 else self._freed[s]
+        with torch.cuda.stream(copy):
+            if after is not None:
+                copy.wait_event(after)
+            dest.copy_(host, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(copy)
+        self.h2d_bytes += host.numel() * host.element_size()
+        compute.wait_event(done)
+        if int8:
+            genostore.pack2_words(dest, self.nw, out=chunk)
+            self._int8_freed = torch.cuda.Event()
+            self._int8_freed.record(compute)
+        return done
 
     def stack_info(self) -> dict:
         """The gate's decision and the streaming counters (for the scan
-        log: ``build_s`` is the stack's build, pinning included)."""
-        return {"mode": self.stack_mode, "chunk_rows": self.chunk_rows,
+        log: ``build_s`` is the stack's build, pinning included;
+        ``host_bytes`` the host memory the scan holds for the stack —
+        the pinned stack or the two staging buffers, page-locked on a
+        card)."""
+        held = list(self._staging or [])
+        if self.plan.host == "pinned" and self._pstack is not None:
+            held.append(self._pstack)
+        return {"mode": self.stack_mode, "host": self.plan.host,
+                "rows": self.src.row_format,
+                "chunk_rows": self.chunk_rows,
                 "chunks": -(-self.src.p // self.chunk_rows),
                 "slots": self.plan.slots,
                 "stack_bytes": self.src.p * self.nw * 4,
@@ -754,7 +991,10 @@ class TiledScan:
                 "reserve_bytes": self.plan.reserve_bytes,
                 "build_s": self.build_s,
                 "stream_passes": self.stream_passes,
-                "h2d_bytes": self.h2d_bytes}
+                "h2d_bytes": self.h2d_bytes,
+                "read_bytes": self.read_bytes, "read_s": self.read_s,
+                "host_bytes": sum(t.numel() * t.element_size()
+                                  for t in held)}
 
     def _to_device(self, V: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(V), dtype=torch.float32,
@@ -1118,8 +1358,9 @@ class MultiHostTiledScan(TiledScan):
 
     Each rank holds ONLY its SNP range [lo, hi) as its packed stack
     (store shard ↔ rank locality: a split store's foreign shards are never
-    opened), resident or streamed by the rank's own gate, and the
-    primitives compose across ranks:
+    opened), resident or streamed by the rank's own gate (read from the
+    store, a rank's every pass reads its own range), and the primitives
+    compose across ranks:
 
     - ``kernel_matvec`` and ``compute_K``: the rank's partial, summed over
       the ranks in process order on the host (utils/distributed, f64);

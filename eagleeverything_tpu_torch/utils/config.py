@@ -35,16 +35,22 @@ class EagleConfig:
       snp_tile: number of SNPs per tile — while the packed stack is built,
         and in the exact engine's W and T tiles; must be a multiple of 128. ``None`` (default) auto-sizes to
         ~512 MB of float32 per tile.
-      availmem_gb: host-RAM budget per block for out-of-core streaming —
-        the reference's ``availmemGb`` knob.
+      availmem_gb: host-RAM budget for out-of-core work — the reference's
+        ``availmemGb`` knob: the ingest's row blocks, and the host side of
+        a packed stack that streams through the card. Such a stack is held
+        whole in page-locked host memory when its p·⌈n/16⌉·4 bytes fit
+        this budget; otherwise every pass reads it anew from its source
+        (the store on disk) through two page-locked staging buffers of one
+        chunk each, which must fit it too (engine_torch._stack_plan). Raise
+        it to keep a stack larger than the default 8 GB pinned.
       device_cache_gb: device budget of the exact engine: its recoded W
         tiles and their eigenbasis images T stay on the device when
         p·n·itemsize fits half of it (else each sweep recomputes T from the
         stack). The packed stack itself is not budgeted by it: it is held,
         with what the scan keeps beside it, against the card's free memory
-        (engine_torch._stack_plan); when it does not fit it stays in
-        page-locked host memory and streams through the card chunk by
-        chunk on every pass.
+        (engine_torch._stack_plan); when it does not fit it streams
+        through the card chunk by chunk on every pass, from the host as
+        ``availmem_gb`` says.
       host_eigh_max_n: the exact engine's eigendecomposition runs on the
         host in float64 up to this many individuals (U kept on the host),
         and above it in float32 on the device (U kept there).

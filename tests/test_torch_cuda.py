@@ -98,7 +98,8 @@ def test_streamed_stack_on_card_matches_resident(cuda, monkeypatch, slots):
     res, _, _, rng = _scan(1001, cuda)
     monkeypatch.setattr(
         engine_torch, "_stack_plan",
-        lambda p, nw, n, device, config, tile_snps, cache_device, matfree:
+        lambda p, nw, n, device, config, tile_snps, cache_device, matfree,
+        row_format:
         engine_torch.StackPlan("streamed", 1024, slots, 0, 0))
     st, _, _, _ = _scan(1001, cuda)
     assert st.stack_mode == "streamed" and st._pstack.is_pinned()
@@ -121,6 +122,51 @@ def test_streamed_stack_on_card_matches_resident(cuda, monkeypatch, slots):
                                atol=1e-5)
     assert st.h2d_bytes == st.stream_passes * st.stack_info()["stack_bytes"]
     assert res.stream_passes == res.h2d_bytes == 0
+
+
+@pytest.mark.parametrize("packed_store", [True, False])
+def test_store_streamed_stack_on_card_matches_pinned(cuda, monkeypatch,
+                                                     tmp_path, packed_store):
+    """The stack read from a 3-shard store on every pass, through the two
+    page-locked staging buffers, in 1024-row chunks (1024, 1024, 953, the
+    first two across a shard boundary): raw 2-bit bytes, or int8 rows
+    packed on the card. K·V at r = 8 and 137 equals itself over two calls
+    and the pinned-streamed K·V at the same chunking bit for bit (the same
+    words in each chunk), which a staging buffer refilled before its copy
+    was done would break; no host stack is built."""
+    from eagleeverything_tpu_torch.io.genostore import GenotypeStore
+    rng = np.random.default_rng(1001)
+    G = rng.integers(0, 3, size=(1001, P)).astype(np.int8)
+    G[rng.random((1001, P)) < 0.03] = -9
+    d = str(tmp_path / "store")
+    GenotypeStore.create_from_dense(d, G, n_shards=3, packed=packed_store)
+    scans = {}
+    for host in ("pinned", "store"):
+        monkeypatch.setattr(
+            engine_torch, "_stack_plan",
+            lambda p, nw, n, device, config, tile_snps, cache_device,
+            matfree, row_format, host=host:
+            engine_torch.StackPlan("streamed", 1024, 3, 0, 0, host=host))
+        scans[host] = engine_torch.TiledScan(
+            engine_torch.StoreTileSource(d), EagleConfig(snp_tile=1024),
+            cuda)
+    st = scans["store"]
+    for r in (8, 137):
+        V = torch.from_numpy(rng.standard_normal((1001, r)).astype(
+            np.float32)).to(cuda)
+        got, again = st._device_kv(V), st._device_kv(V)
+        ref = scans["pinned"]._device_kv(V)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again) and torch.equal(got, ref)
+    info = st.stack_info()
+    assert st._pstack is None and info["host"] == "store"
+    row = -(-1001 // 4) if packed_store else 1001
+    # raw rows cross as whole words, int8 rows as they are
+    assert st.h2d_bytes == st.stream_passes * P * (
+        st.nw * 4 if packed_store else 1001)
+    assert info["read_bytes"] == st.stream_passes * P * row
+    assert 0 < info["host_bytes"] <= 2 * 1024 * max(row, st.nw * 4)
+    assert all(t.is_pinned() for t in st._staging)
 
 
 def test_launch_counts_and_repeatability(cuda):

@@ -51,7 +51,8 @@ JAX_CFG = JaxConfig(snp_tile=256, device_cache_gb=1e-6)
 
 
 def _streamed_plan(rows: int, slots: int = 2):
-    def plan(p, nw, n, device, config, tile_snps, cache_device, matfree):
+    def plan(p, nw, n, device, config, tile_snps, cache_device, matfree,
+             row_format):
         return engine_torch.StackPlan("streamed", min(rows, p), slots, 0, 0)
     return plan
 
@@ -361,7 +362,8 @@ from eagleeverything_tpu_torch.models import engine_torch
 from eagleeverything_tpu_torch.utils.config import EagleConfig
 chunk = int(os.environ.get("EAGLE_TEST_CHUNK", "0"))
 if chunk:
-    def plan(p, nw, n, device, config, tile_snps, cache_device, matfree):
+    def plan(p, nw, n, device, config, tile_snps, cache_device, matfree,
+             row_format):
         return engine_torch.StackPlan("streamed", min(chunk, p), 2, 0, 0)
     engine_torch._stack_plan = plan
 with np.load(os.environ["EAGLE_TEST_IN"]) as z:
