@@ -23,6 +23,11 @@ Phases, each fatal when its check fails:
    against its plain version again and time it (CUDA events, median of 10)
    beside its bound, its plain version and one ``torch.matmul`` on the
    unpacked f32 W (a yardstick the port never calls);
+4b. the kernels at BASELINE config 4's axes (AXIS_SHAPES: K1, K2 and K3 at
+   500 000 × 32 768, K1 at 2 048 × 5 000 000), each timed beside its bound
+   and ``torch.matmul`` on the f32 W a row block at a time (LIB_BLOCKS,
+   the blocks' times summed), bit for bit against itself, and against its
+   plain version (one call, timed) and the library's blocks;
 5. a small parity check: ``am(engine="matfree")`` at n = 2000, p = 20 000
    on the card; its CPU leg, and those of phases 12-14, run in a process
    of this script's own (``--cpu-legs``, started after phase 6) beside the
@@ -116,11 +121,27 @@ Phases, each fatal when its check fails:
    engine from an unpacked copy of phase 8's store, its int8 rows packed on
    the card (phase 8's selection, extBIC within rtol 1e-6). The stores
    were written in the run, so the page cache is warm;
-20. a summary line per kernel and the kernels' JSON line (launches by path,
+20. BASELINE config 4's n axis at its true size: 500 000 × 32 768 written
+   by scripts/biobank_axes_torch.py's gen_n (the JAX script's cohort), the
+   gate's plan printed (the 4.10 GB stack must stay on the card), then its
+   run_n (the matrix-free scan with the recorded Krylov protocol,
+   N_AXIS_MAXIT steps, the last one traced), held to
+   docs/biobank_axis_n_result.json: the recorded selections in order, all
+   planted, each extBIC within rtol 1e-3; the launches counted around the
+   call, the first at each width bit for bit against itself and against
+   the plain version on SLICE_ROWS rows; the allocator's peak printed
+   beside stack_reserve's figure;
+21. BASELINE config 4's p axis at its true size: 2 048 × 5 000 000 packed
+   into a 4-shard store by gen_p (``store_only``), then run_p's REML fit,
+   one full stat sweep and its column reads: the recorded argmax, t at the
+   planted SNPs beside the record's, the launches held as in phase 20.
+   Each axis phase deletes its store when it ends;
+22. a summary line per kernel and the kernels' JSON line (launches by path,
    each read around exactly that call: the matrix-free am, summary_am,
    am with Zmat, am_multi, fpr4am, each rank of phase 17's matrix-free am,
-   phase 18's streamed matrix-free and exact am, and phase 19's), then the
-   last line ``{"ok": true, "device": {...}}``.
+   phase 18's streamed matrix-free and exact am, phase 19's, and the two
+   axes of phases 20-21), then the last line
+   ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside a checkout, it exits non-zero with no result line.
 """
@@ -133,6 +154,7 @@ import json
 import math
 import os
 import re
+import shutil
 import socket
 import subprocess
 import sys
@@ -163,6 +185,21 @@ WIDTHS_RAGGED = (1, 2, 8, 9, 16, 17, 32, 33, 64, 65, 137, 144, 145, 289)
 # genotype tile, p no multiple of the 32-row k-step; p = 201 < 256 rows
 # gives packed_tdot a single split (no reduce launch)
 SHAPES_RAGGED = ((1001, 20011), (50000, 3001), (50000, 201))
+
+# the shapes of BASELINE config 4's axes (phases 20-21), timed in phase 4b:
+# K1, K2 and K3 at n = 500 000 x 32 768 SNPs, K1 alone at 2 048 x 5 000 000
+AXIS_SHAPES = (((500000, 32768), ("packed_dot", "packed_tdot",
+                                  "kernel_matvec"), (8, 16, 144)),
+               ((2048, 5000000), ("packed_dot",), (8, 144)))
+# the f32 W of those shapes (65.5 and 41.0 GB) is recoded, and multiplied by
+# torch.matmul, this many row blocks at a time; their times are summed
+LIB_BLOCKS = 4
+# stack rows on which each launch of phases 20-21 is held against the plain
+# version (a plain pass over the whole stack takes seconds a launch there)
+SLICE_ROWS = 4096
+# forward-selection steps of the n-axis scan (phase 20): the recorded run
+# selected six SNPs, one a step, so each step is held to the record
+N_AXIS_MAXIT = 6
 
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth and dense bf16 on the tensor
 # cores (both kernels run their products there); fp32 outside the tensor
@@ -747,6 +784,113 @@ def timing_phase(torch, packed, dev, n: int, p: int, seed: int) -> dict:
     return res
 
 
+def axis_timing_phase(torch, packed, dev, seed: int) -> dict:
+    """Phase 4b: the kernels at BASELINE config 4's two axes (AXIS_SHAPES),
+    on random stacks made on the card, each beside its bound and the
+    library. Each launch is bitwise repeatable, and every result is held
+    against the plain version and the library's blocks (TOL). Returns
+    {(n, p): {name: {r: metrics}}}."""
+    phase("4b. kernels at BASELINE config 4's axes: K1, K2 and K3 at "
+          "n = 500 000, p = 32 768, r in (8, 16, 144); K1 at n = 2 048, "
+          "p = 5 000 000, r in (8, 144) (CUDA events, median of 10; the "
+          "plain versions one call; torch.matmul on the f32 W "
+          f"{LIB_BLOCKS} row blocks at a time, the blocks' times summed, "
+          "since the whole W is 65.5 / 41.0 GB)")
+    out = {}
+    for (n, p), names, widths in AXIS_SHAPES:
+        stack, means = random_stack(torch, packed, n, p, seed + 3, dev,
+                                    chunk=max(1, (1 << 28) // n))
+        nw = stack.shape[1]
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed + 4)
+        X = {r: (torch.randn((n, r), generator=gen, device=dev),
+                 torch.randn((p, r), generator=gen, device=dev)
+                 if "packed_tdot" in names else None) for r in widths}
+
+        def operand(name, r):
+            return X[r][1] if name == "packed_tdot" else X[r][0]
+
+        res = {name: {} for name in names}
+        outs = {}
+        for r in widths:
+            for name in names:
+                fn = getattr(packed, name)
+                plain = getattr(packed, f"{name}_plain")
+                A = operand(name, r)
+                k_out, ms = timed(torch, lambda: fn(stack, A, means, n), 10,
+                                  2)
+                check(torch.equal(k_out, fn(stack, A, means, n)),
+                      f"{name} not bitwise repeatable at n={n} p={p} r={r}")
+                p_out, p_ms = timed(torch, lambda: plain(stack, A, means, n),
+                                    1, 0)
+                err, rel = rel_err(torch, k_out, p_out)
+                del p_out
+                check(rel <= TOL, f"{name} disagrees with its plain version "
+                      f"at n={n} p={p} r={r}: rel {rel:.3e}")
+                b_ms, b_by, b_unit = bound(name, n, p, r, nw)
+                res[name][r] = {"ms": ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                                "bound_by": b_by, "bound_unit": b_unit,
+                                "library_ms": 0.0, "max_abs_err": err,
+                                "rel_err": rel,
+                                "executed_tflops": executed_flops(
+                                    name, n, p, r) / ms / 1e9}
+                if name == "packed_tdot":
+                    res[name][r]["splits"] = \
+                        packed._tdot_lib().ee_packed_tdot_splits(p, n, r)
+                outs[name, r] = k_out
+        # the library, a row block of W at a time: K1's rows are its
+        # blocks' products, K2's and K3's results their sums
+        rows = -(-p // LIB_BLOCKS)
+        sums = {key: torch.zeros_like(v) for key, v in outs.items()
+                if key[0] != "packed_dot"}
+        k1_err = {r: 0.0 for r in widths}
+        for i0 in range(0, p, rows):
+            W = packed.recode(stack[i0 : i0 + rows], means[i0 : i0 + rows],
+                              n)
+            for r in widths:
+                A, T = X[r][0], X[r][1]
+                lib = {"packed_dot": lambda: torch.matmul(W, A),
+                       "packed_tdot": lambda: torch.matmul(
+                           W.T, T[i0 : i0 + rows]),
+                       "kernel_matvec": lambda: torch.matmul(
+                           W.T, torch.matmul(W, A))}
+                for name in names:
+                    l_out, l_ms = timed(torch, lib[name], 10, 1)
+                    res[name][r]["library_ms"] += l_ms
+                    if name == "packed_dot":
+                        k1_err[r] = max(k1_err[r], (
+                            l_out - outs[name, r][i0 : i0 + rows]
+                        ).abs().max().item())
+                    else:
+                        sums[name, r] += l_out
+                    del l_out
+            del W
+            torch.cuda.empty_cache()
+        for (name, r), got in outs.items():
+            if name == "packed_dot":
+                rel = k1_err[r] / max(got.abs().max().item(), 1e-30)
+            else:
+                rel = rel_err(torch, got, sums[name, r])[1]
+            check(rel <= TOL, f"torch.matmul and {name} disagree at n={n} "
+                  f"p={p} r={r}: rel {rel:.3e}")
+            m = res[name][r]
+            print(f"{name:14s} n={n:6d} p={p:7d} r={r:4d}  kernel "
+                  f"{m['ms']:9.3f} ms  plain {m['plain_ms']:9.1f} ms  "
+                  f"torch.matmul on f32 W, {LIB_BLOCKS} row blocks summed "
+                  f"{m['library_ms']:9.3f} ms  bound {m['bound_ms']:8.3f} ms "
+                  f"({m['bound_by']} on {m['bound_unit']}, "
+                  f"{m['bound_ms'] / m['ms']:.1%} of it)  executes "
+                  f"{m['executed_tflops']:.1f} TFLOP/s  "
+                  + (f"split-K {m['splits']}  " if "splits" in m else "")
+                  + f"vs plain: max abs err {m['max_abs_err']:.2e} (rel "
+                  f"{m['rel_err']:.2e}); vs torch.matmul: rel {rel:.2e}",
+                  flush=True)
+        out[n, p] = res
+        del stack, means, X, outs, sums
+        torch.cuda.empty_cache()
+    return out
+
+
 def read_log(path: str) -> list[dict]:
     with open(path) as f:
         return [json.loads(ln) for ln in f if ln.strip()]
@@ -988,14 +1132,15 @@ def main_path_phase(torch, ep, packed, tmp: str, n: int, p: int, seed: int,
             "trace": trace, "phases": scan_phases(events)}
 
 
-def print_trace(tr: IterationTrace) -> dict:
+def print_trace(tr: IterationTrace,
+                what: str = "iteration 1 (sweep + refit, under the profiler, "
+                            "in a second am() call with maxit 2)") -> dict:
     """Summarise and print the iteration an IterationTrace recorded."""
     trace = {"device_events": 0}
     if tr.done:
         trace = trace_summary(tr.path, tr.wall_s)
     if trace["device_events"]:
-        print(f"traced iteration 1 (sweep + refit, under the profiler, "
-              "in a second am() call with maxit 2): "
+        print(f"traced {what}: "
               f"window {trace['window_ms']:.1f} ms, device busy "
               f"{trace['device_busy_ms']:.1f} ms, idle share "
               f"{trace['device_idle_share']:.1%}; {trace['gaps_over_1ms']} "
@@ -2490,6 +2635,217 @@ def store_phase(torch, ep, packed, engine_torch, tmp: str, card: str,
     return out
 
 
+def load_axes():
+    """scripts/biobank_axes_torch.py, imported by path."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "biobank_axes_torch",
+        os.path.join(ROOT, "scripts", "biobank_axes_torch.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def slice_checks(torch, packed, kept: dict, what: str) -> dict:
+    """Hold each launch a LaunchRecorder (``streamed``: host copies) kept
+    on a stack where a plain pass takes seconds: bit for bit against the
+    kernel launched again on the same operands, and against the plain
+    version on the stack's first SLICE_ROWS rows, at TOL: K1's output rows
+    there; K2 and K3, whose output sums over every row, launched again on
+    those rows. Returns {kernel: worst rel err}."""
+    worst = {}
+    on_card = {}
+
+    def card(t):
+        if id(t) not in on_card:
+            on_card[id(t)] = t.cuda()
+        return on_card[id(t)]
+
+    s = slice(0, SLICE_ROWS)
+    for key, (Wp, means, n, X, got) in sorted(kept.items()):
+        name, r = key[:2]
+        Wp, means, X, got = card(Wp), card(means), X.cuda(), got.cuda()
+        fn, plain = getattr(packed, name), getattr(packed, f"{name}_plain")
+        again = fn(Wp, X, means, n)
+        torch.cuda.synchronize()
+        check(torch.equal(again, got), f"{name} at r={r} is not bitwise "
+              f"repeatable on {what}'s operand")
+        if name == "packed_dot":
+            k_out, ref = got[s], plain(Wp[s], X, means[s], n)
+        else:
+            Xs = X[s] if name == "packed_tdot" else X
+            k_out, ref = fn(Wp[s], Xs, means[s], n), plain(Wp[s], Xs,
+                                                           means[s], n)
+        err, rel = rel_err(torch, k_out, ref)
+        worst[name] = max(worst.get(name, 0.0), rel)
+        print(f"  {name:14s} n={n} p={Wp.shape[0]} r={r:3d} (as {what} "
+              f"launched it): bitwise repeatable; on {SLICE_ROWS} rows vs "
+              f"plain: max abs err {err:.3e}, rel {rel:.3e}", flush=True)
+        check(rel <= TOL, f"{name} disagrees with its plain version on "
+              f"{what}'s operand at r={r}: rel {rel:.3e}")
+        del again, k_out, ref, X, got
+    check(set(worst) == set(LaunchRecorder.NAMES),
+          f"{what} launched only {sorted(worst)}")
+    del on_card
+    torch.cuda.empty_cache()
+    return worst
+
+
+def n_axis_phase(torch, packed, engine_torch, axes, tmp: str, card: str,
+                 dev) -> dict:
+    """Phase 20: BASELINE config 4's n axis at its true size, 500 000 x
+    32 768, generated by the port's gen_n (the JAX script's cohort, byte
+    for byte) and scanned by the port's run_n with the recorded protocol,
+    ``N_AXIS_MAXIT`` steps, the last traced; held to the recorded
+    selections and extBIC path (docs/biobank_axis_n_result.json)."""
+    from eagleeverything_tpu_torch.models import bigscan
+    with open(os.path.join(ROOT, "docs", "biobank_axis_n_result.json")) as f:
+        record = json.load(f)
+    maxit = N_AXIS_MAXIT
+    phase(f"20. BASELINE config 4's n axis, uncut: 500 000 x 32 768 from "
+          "the port's gen_n (seed 11), run_n with the recorded protocol "
+          f"({', '.join(f'{k}={v}' for k, v in axes.N_PROTOCOL.items())}), "
+          f"maxit {maxit}, iteration {maxit - 1} traced; held to "
+          "docs/biobank_axis_n_result.json")
+    print(card)
+    d = os.path.join(tmp, "biobank_n")
+    gen = axes.gen_n(d, device=dev)
+    store = os.path.join(d, "store_full")
+    print(f"cohort generated and written in {gen['gen_s']:.1f} s (host "
+          f"draws {gen['draw_s']:.1f} s)", flush=True)
+
+    # the gate's plan before the run, at the protocol's config and at am()'s
+    # default matrix-free fields
+    probe = engine_torch.TiledScan(engine_torch.StoreTileSource(store),
+                                   axes.protocol_config(), dev)
+    plan, info = probe.plan, probe.stack_info()
+    n, p = probe.src.n, probe.src.p
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    defaults = {}
+    for width in (engine_torch.MULTI_STAT_COLS, engine_torch.KRYLOV_COLS):
+        fixed, per_row = engine_torch.stack_reserve(
+            n, p, axes.axis_config(), sms, probe.cache_device, width,
+            probe.tile_snps)
+        defaults[width] = fixed + per_row * p
+    del probe
+    print(f"gate: {plan.mode}, stack {info['stack_bytes'] / 1e9:.3f} GB "
+          f"({p} x {packed.words_per_row(n)} words), stack_reserve at the "
+          f"protocol {plan.reserve_bytes / 1e9:.3f} GB (stat rows at "
+          f"{plan.stat_cols} columns), {plan.free_bytes / 1e9:.3f} GB free; "
+          "at am()'s default matrix-free fields the reserve would be "
+          + ", ".join(f"{v / 1e9:.3f} GB at {w} columns"
+                      for w, v in defaults.items()), flush=True)
+    check(plan.mode == "resident", f"the n-axis stack does not stay on the "
+          f"card: {info}")
+
+    rec = LaunchRecorder(packed, streamed=True)
+    with IterationTrace(torch, bigscan, maxit - 1,
+                        os.path.join(tmp, "n_axis_trace.json")) as tr:
+        res, wall, launches = run_counted(torch, packed, lambda: axes.run_n(
+            d, maxit, device=dev, out=os.path.join(d, "result.json")), rec)
+    trace = print_trace(tr, f"iteration {maxit - 1} (sweep + refit, under "
+                        "the profiler, inside the scan)")
+    for e in res["phase_events"]:
+        print(f"  phase {e['phase']:8s} {e['wallclock_s']:9.2f} s")
+    for e in res["iteration_events"]:
+        print(f"  iteration {e['it']}: candidate {e['candidate']} t "
+              f"{e['t_max']:.1f} extBIC {e['extbic']:.4f} accepted "
+              f"{e['accepted']}")
+    k = len(res["selected"])
+    rec_path = record["extbic_path"][: k + 1]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(res["extbic_path"],
+                                                rec_path)]
+    peak = res["peak_device_bytes"]
+    stack_bytes = res["stack"]["stack_bytes"]
+    print(f"run_n wall {wall:.1f} s (iteration {maxit - 1} under the "
+          f"profiler); {res['stack_passes'].get('total')} stack passes; "
+          f"launches {launches}; selected {res['selected']} (record "
+          f"{record['selected']}), extBIC {res['extbic_path']} (record "
+          f"{rec_path}), rel gaps {[f'{g:.2e}' for g in gaps]}; peak device "
+          f"memory {peak / 1e9:.3f} GB: the stack {stack_bytes / 1e9:.3f} GB "
+          f"and {(peak - stack_bytes) / 1e9:.3f} GB beside it, against "
+          f"stack_reserve's {res['stack']['reserve_bytes'] / 1e9:.3f} GB; "
+          f"Krylov cache {res['krylov_cache']}", flush=True)
+    check(res["stack"].get("mode") == "resident", "the scan streamed")
+    check(k == maxit, f"the n-axis scan took {k} steps of {maxit}; the "
+          "record accepted six")
+    check(res["selected"] == record["selected"][:k],
+          f"the n-axis scan selected {res['selected']}, the record "
+          f"{record['selected'][:k]}")
+    check(res["selected_all_planted"], "an n-axis selection is not planted")
+    check(max(gaps) <= 1e-3, f"the n-axis extBIC path is off the record's: "
+          f"{gaps}")
+    for name in KERNELS:
+        check(launches[name] >= 1, f"{name} was never launched by the "
+              "n-axis scan")
+    kept = slice_checks(torch, packed, rec.kept, "the n-axis scan")
+    rec.kept.clear()
+    shutil.rmtree(d)
+    return {"gen": gen, "wall_s": wall, "launches": launches, "trace": trace,
+            "selected": res["selected"], "gaps": gaps, "peak_bytes": peak,
+            "stack_bytes": stack_bytes,
+            "reserve_bytes": res["stack"]["reserve_bytes"],
+            "reserve_defaults": defaults, "phases": res["phase_events"],
+            "passes": res["stack_passes"].get("total"), "kept_rel_err": kept}
+
+
+def p_axis_phase(torch, packed, axes, tmp: str, card: str, dev) -> dict:
+    """Phase 21: BASELINE config 4's p axis at its true size, 2 048 x
+    5 000 000, from the port's gen_p with ``store_only`` (the JAX script's
+    draws packed into the store its ingest writes, no text), then run_p's
+    REML fit and one full matrix-free stat sweep; held to the recorded
+    argmax (docs/biobank_axis_p_result.json)."""
+    with open(os.path.join(ROOT, "docs", "biobank_axis_p_result.json")) as f:
+        record = json.load(f)
+    phase("21. BASELINE config 4's p axis, uncut: 2 048 x 5 000 000 from the "
+          "port's gen_p --store-only (seed 12, 4 packed shards, no text), "
+          "then run_p (make_context "
+          f"{axes.P_CONTEXT}, reml_maximize_matfree, score_sweep_matfree "
+          f"{axes.P_SWEEP}) and the column reads; held to "
+          "docs/biobank_axis_p_result.json")
+    print(card)
+    d = os.path.join(tmp, "biobank_p")
+    gen = axes.gen_p(d, store_only=True, device=dev)
+    print(f"rows drawn in {gen['write_s']:.1f} s, the store packed and "
+          f"written in {gen['store_s']:.1f} s", flush=True)
+    rec = LaunchRecorder(packed, streamed=True)
+    (res, t), wall, launches = run_counted(torch, packed, lambda: axes.run_p(
+        d, device=dev, out=os.path.join(d, "result.json")), rec)
+    qtl = res["qtl_planted"]
+    print(f"run_p wall {wall:.1f} s: context {res['context_s']:.2f} s, reml "
+          f"{res['reml_s']:.2f} s, sweep {res['sweep_seconds']:.2f} s "
+          f"({res['snps_per_second_sweep']:.0f} SNPs/s); stack "
+          f"{res['stack']['mode']} ({res['stack']['stack_bytes'] / 1e9:.3f} "
+          f"GB, built in {res['stack']['build_s']:.2f} s); launches "
+          f"{launches}; argmax {res['argmax']} (record {record['argmax']}); "
+          "t at the planted SNPs "
+          + ", ".join(f"{j}: {a:.4f} (record {b:.4f})" for j, a, b in zip(
+              qtl, res["t_at_planted"], record["t_at_planted"]))
+          + f"; t quantiles {res['t_quantiles']} (record "
+          f"{record['t_quantiles']}); escalation {res['escalation']}; "
+          f"column reads {res['column_roundtrip_ok']}", flush=True)
+    check(qtl == record["qtl_planted"], f"the p-axis cohort planted {qtl}, "
+          f"the record {record['qtl_planted']}")
+    check(res["argmax"] == record["argmax"], f"the p-axis argmax is "
+          f"{res['argmax']}, the record's {record['argmax']}")
+    check(res["column_roundtrip_ok"], "a p-axis column read failed")
+    check(res["stack"]["mode"] == "resident", "the p-axis stack streamed")
+    check(bool(np.all(np.isfinite(t))) and t.shape == (res["p"],),
+          "the p-axis t vector is not finite or not p long")
+    for name in KERNELS:
+        check(launches[name] >= 1, f"{name} was never launched by the "
+              "p-axis run")
+    kept = slice_checks(torch, packed, rec.kept, "the p-axis run")
+    rec.kept.clear()
+    shutil.rmtree(d)
+    return {"gen": gen, "wall_s": wall, "launches": launches,
+            "sweep_s": res["sweep_seconds"],
+            "snps_per_s": res["snps_per_second_sweep"],
+            "reml_s": res["reml_s"], "context_s": res["context_s"],
+            "argmax": res["argmax"], "t_at_planted": res["t_at_planted"],
+            "kept_rel_err": kept}
+
+
 def run(args) -> None:
     import torch
 
@@ -2506,6 +2862,7 @@ def run(args) -> None:
     build_phase(build)
     ragged = ragged_phase(torch, packed, dev, args.seed)
     timing = timing_phase(torch, packed, dev, N, P_KERNELS, args.seed)
+    axis_timing = axis_timing_phase(torch, packed, dev, args.seed)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"),
                                      prefix="smoke_") as tmp, \
@@ -2543,8 +2900,12 @@ def run(args) -> None:
                                   main, cfg2, dev)
         store = store_phase(torch, ep, packed, engine_torch, tmp, card,
                             main, streamed, cfg2, zmat["cohort"], dev)
+        axes = load_axes()
+        n_axis = n_axis_phase(torch, packed, engine_torch, axes, tmp, card,
+                              dev)
+        p_axis = p_axis_phase(torch, packed, axes, tmp, card, dev)
 
-    phase("20. kernels")
+    phase("22. kernels")
     by_path = {"am_matfree": main["launches"],
                "summary_am_matfree": flow["summary_matfree_launches"],
                "am_matfree_zmat": zmat["launches"],
@@ -2554,6 +2915,8 @@ def run(args) -> None:
         by_path[f"am_matfree_rank{r}_of_2"] = out["matfree"]["launches"]
     by_path["am_matfree_streamed"] = streamed["launches"]
     by_path["am_matfree_store"] = store["launches"]
+    by_path["biobank_n_axis"] = n_axis["launches"]
+    by_path["biobank_p_axis"] = p_axis["launches"]
     w1 = world1["warm"]
     print(f"world 1 (NCCL): am(engine='sharded') {world1['wall_s']:.1f} s, "
           f"mmt_psum {w1['mmt_psum']['ms']:.3f} ms, "
@@ -2596,6 +2959,18 @@ def run(args) -> None:
                       " GB/s" for r, k in store["kv"].items())
           + f"; {store['host_bytes'] / 1e9:.3f} GB page-locked; exact config "
           f"2 from int8 rows {store['exact_wall_s']:.2f} s")
+    print(f"BASELINE config 4's n axis ({card}): gen_n "
+          f"{n_axis['gen']['gen_s']:.1f} s, run_n {n_axis['wall_s']:.1f} s "
+          f"({N_AXIS_MAXIT} steps, {n_axis['passes']} stack passes), selected "
+          f"{n_axis['selected']}, peak {n_axis['peak_bytes'] / 1e9:.3f} GB "
+          f"(stack {n_axis['stack_bytes'] / 1e9:.3f} GB, reserve "
+          f"{n_axis['reserve_bytes'] / 1e9:.3f} GB), idle share of the "
+          "traced iteration "
+          f"{n_axis['trace'].get('device_idle_share', float('nan')):.1%}; "
+          f"p axis: gen_p --store-only {p_axis['gen']['write_s']:.1f} + "
+          f"{p_axis['gen']['store_s']:.1f} s, run_p {p_axis['wall_s']:.1f} "
+          f"s, sweep {p_axis['sweep_s']:.2f} s ({p_axis['snps_per_s']:.0f} "
+          f"SNPs/s), argmax {p_axis['argmax']}")
     entries = []
     head = 64
     for name, meta in KERNELS.items():
@@ -2628,14 +3003,23 @@ def run(args) -> None:
             "bound_unit": m["bound_unit"],
             "library_ms": m["library_ms"],
             "shape": {"n": N, "p": P_KERNELS, "r": head},
-            "by_r": {str(r): v for r, v in by_r.items()}})
+            "by_r": {str(r): v for r, v in by_r.items()},
+            "axis_shapes": {f"{n}x{p}": {str(r): v for r, v in
+                                         res[name].items()}
+                            for (n, p), res in axis_timing.items()
+                            if name in res},
+            "axis_rel_err": max(n_axis["kept_rel_err"][name],
+                                p_axis["kept_rel_err"][name])})
         if name == "packed_dot":
             entries[-1]["am_multi_wide_rel_err"] = multi["wide_rel_err"]
             entries[-1]["am_multi_widths"] = {
                 str(r): c for r, c in multi["k1_widths"].items()}
     kv = timing["kernel_matvec"]
     print("kernel_matvec (packed_dot then packed_tdot): "
-          + ", ".join(f"r={r}: {v['ms']:.3f} ms" for r, v in kv.items()))
+          + ", ".join(f"r={r}: {v['ms']:.3f} ms" for r, v in kv.items())
+          + "; at n = 500 000, p = 32 768: "
+          + ", ".join(f"r={r}: {v['ms']:.3f} ms" for r, v in
+                      axis_timing[500000, 32768]["kernel_matvec"].items()))
     print(f"total wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

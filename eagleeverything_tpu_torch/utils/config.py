@@ -1,8 +1,10 @@
 """Single-dataclass configuration for the engine (SURVEY.md §6.6).
 
-The fields and defaults are the JAX package's, less its switch for the
-Pallas kernels: on this package's packed path the hand-written CUDA
-kernels (ops/packed) are the only path on a card.
+The fields and defaults are the JAX package's. Its switch for the Pallas
+kernels, ``pallas_packed``, is accepted with the same default and changes
+nothing: on a card the hand-written CUDA kernels (ops/packed) are the only
+packed path, and on the CPU their plain PyTorch versions, whatever its
+value.
 
 The reference exposes knobs only as function arguments (``availmemGb``,
 ``ncpu``, ``ngpu``, ``maxit``, ``fixit``, ``lambda``); we keep that spirit —
@@ -69,6 +71,11 @@ class EagleConfig:
     host_eigh_max_n: int = 8192
     matfree_min_n: int = 32768
     seed: int = 0
+    # the JAX package's switch for its Pallas kernels, kept so that a
+    # config written for it constructs here; inert for every value (the
+    # packed path is ops/packed's CUDA kernels on a card, their plain
+    # versions on the CPU)
+    pallas_packed: Optional[bool] = None
     # --- matrix-free engine accuracy/cost knobs (bigscan) -------------
     # Defaults match forward_select_matfree's signature; lowering them
     # trades sweep-estimate sharpness for wall-clock (the decision path

@@ -7,7 +7,7 @@ summary at rtol 1e-4 and within that file's bands, the same ``.html`` plot,
 and that file's batching-invariance and λ_crit-semantics properties on the
 port. Also ``am_multi``'s JAX keywords, and the matrix-free routes this
 port took last (Zmat in the summary, ``fpr4am``) against the JAX
-package's."""
+package's, and the fields of the two EagleConfigs."""
 
 import dataclasses
 import os
@@ -273,6 +273,23 @@ def test_am_multi_takes_jax_keywords(handles, tmp_path):
         np.testing.assert_allclose(got[t].extbic_path, ref[t].extbic_path,
                                    rtol=1e-6)
     assert len(got["y"].indices) >= 1
+
+
+def test_eagle_config_fields_are_the_jax_packages():
+    """The port's EagleConfig has the JAX package's fields, in its order,
+    with its defaults (fault F2: ``pallas_packed`` was refused), and takes
+    the reference's Pallas switch at every value without effect."""
+    from eagleeverything_tpu.utils.config import EagleConfig as JaxConfig
+
+    def fields(cls):
+        return [(f.name, f.default) for f in dataclasses.fields(cls)]
+
+    assert fields(port.EagleConfig) == fields(JaxConfig)
+    for value in (None, True, False):
+        cfg = port.EagleConfig(pallas_packed=value)
+        assert cfg.pallas_packed is value
+        assert dataclasses.replace(cfg, pallas_packed=None) \
+            == port.EagleConfig()
 
 
 def test_zmat_file_scan_matches_jax(handles, tmp_path):
