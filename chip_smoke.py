@@ -136,12 +136,23 @@ Phases, each fatal when its check fails:
    one full stat sweep and its column reads: the recorded argmax, t at the
    planted SNPs beside the record's, the launches held as in phase 20.
    Each axis phase deletes its store when it ends;
-22. a summary line per kernel and the kernels' JSON line (launches by path,
+22. scripts/cohort_run_torch.py (BASELINE config 3) with p cut to 65 536:
+   its ``generate`` writes scripts/cohort_run.py's cohort (the first and
+   last 4096-SNP blocks held byte for byte to numpy's own draws), its
+   ``run`` scans it through ``am()`` (maxit 3, every selection planted),
+   the launches counted and held as in phase 20;
+23. ``bench_cuda.py --quick`` for each of its five configs, a process
+   each (sweep, eigsweep and multitrait started with phase 22 and run
+   beside it; cohort-full on phase 22's store; cohort alone on the card):
+   bench.py's metric and unit, a value, no error; the cohort config read
+   the store on every sweep and cohort-full launched packed_dot. Phase
+   22's store is then deleted;
+24. a summary line per kernel and the kernels' JSON line (launches by path,
    each read around exactly that call: the matrix-free am, summary_am,
    am with Zmat, am_multi, fpr4am, each rank of phase 17's matrix-free am,
-   phase 18's streamed matrix-free and exact am, phase 19's, and the two
-   axes of phases 20-21), then the last line
-   ``{"ok": true, "device": {...}}``.
+   phase 18's streamed matrix-free and exact am, phase 19's, the two
+   axes of phases 20-21, phase 22's run, and phase 23's cohort-full),
+   then the last line ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside a checkout, it exits non-zero with no result line.
 """
@@ -200,6 +211,21 @@ SLICE_ROWS = 4096
 # forward-selection steps of the n-axis scan (phase 20): the recorded run
 # selected six SNPs, one a step, so each step is held to the record
 N_AXIS_MAXIT = 6
+# phase 22: scripts/cohort_run_torch.py on BASELINE config 3's n with p cut
+# (the true 50 000 x 1 000 000 runs in the script alone), its generator's
+# block of SNPs, and the scan's steps
+COHORT_P = 65536
+COHORT_BLOCK = 4096
+COHORT_MAXIT = 3
+# phase 23: bench.py's metric and unit of each config (bench.py:180, :426,
+# :561, :627, :677), which bench_cuda.py's lines must carry
+BENCH_LINES = {
+    "sweep": ("snps_scored_per_sec_per_chip", "SNPs/s"),
+    "eigsweep": ("snps_scored_per_sec_per_chip_eigenbasis", "SNPs/s"),
+    "multitrait": ("trait_snps_scored_per_sec_per_chip", "trait·SNPs/s"),
+    "cohort": ("snps_scored_per_sec_per_chip_outofcore", "SNPs/s"),
+    "cohort-full": ("snps_scored_per_sec_per_chip_cohort_full", "SNPs/s"),
+}
 
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth and dense bf16 on the tensor
 # cores (both kernels run their products there); fp32 outside the tensor
@@ -226,6 +252,9 @@ KERNELS = {
 }
 
 
+STARTED = time.perf_counter()
+
+
 class SmokeFailure(Exception):
     pass
 
@@ -236,7 +265,9 @@ def check(cond: bool, msg: str) -> None:
 
 
 def phase(title: str) -> None:
-    print(f"\n== {title}", flush=True)
+    """A phase's header, with the seconds since the script started."""
+    print(f"\n== {title} [at {time.perf_counter() - STARTED:.1f} s]",
+          flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -703,7 +734,7 @@ def timing_phase(torch, packed, dev, n: int, p: int, seed: int) -> dict:
           f"{WIDTHS_MAIN}, packed_dot also at r in {WIDTHS_K1_WIDE} (bit "
           "for bit against itself there) "
           "(CUDA events: kernels and torch.matmul median of 10, plain "
-          "versions median of 3; bound from the H100 SXM data sheet: "
+          "versions one call; bound from the H100 SXM data sheet: "
           "3.35 TB/s HBM against the function's 2·p·n·r FLOPs at 989 "
           "TFLOP/s on the bf16 tensor cores, for both kernels)")
     stack, means = random_stack(torch, packed, n, p, seed, dev)
@@ -736,7 +767,9 @@ def timing_phase(torch, packed, dev, n: int, p: int, seed: int) -> dict:
         for name in these:
             kern, plain = ops[name]
             k_out, k_ms = timed(torch, lambda: kern(X), 10, 2)
-            p_out, p_ms = timed(torch, lambda: plain(X), 3, 0)
+            # one call: the plain versions take seconds a call (2 s at
+            # r = 8), and three of each took 80 s of the time limit
+            p_out, p_ms = timed(torch, lambda: plain(X), 1, 0)
             err, rel = rel_err(torch, k_out, p_out)
             check(rel <= TOL, f"{name} disagrees with its plain version at "
                   f"n={n} p={p} r={r}: rel {rel:.3e} > {TOL:g}")
@@ -2635,12 +2668,11 @@ def store_phase(torch, ep, packed, engine_torch, tmp: str, card: str,
     return out
 
 
-def load_axes():
-    """scripts/biobank_axes_torch.py, imported by path."""
+def load_script(name: str):
+    """scripts/<name>.py, imported by path."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(
-        "biobank_axes_torch",
-        os.path.join(ROOT, "scripts", "biobank_axes_torch.py"))
+        name, os.path.join(ROOT, "scripts", f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -2846,6 +2878,222 @@ def p_axis_phase(torch, packed, axes, tmp: str, card: str, dev) -> dict:
             "kept_rel_err": kept}
 
 
+def redraw_block(n: int, p: int, which: str, seed: int = 7,
+                 block: int = COHORT_BLOCK, n_qtl: int = 8
+                 ) -> tuple[int, np.ndarray]:
+    """(first row, (b, n) int8 genotypes) of scripts/cohort_run.py's
+    ``which`` ("first" or "last") 4096-SNP block, drawn by numpy's own
+    Generator in that script's order; the blocks between are skipped with
+    the bit generator's ``advance`` (a full block takes b doubles and
+    b·n/4 64-bit words of uint16 draws, and leaves a kept 32-bit half as
+    it found it, when 4 divides b·n)."""
+    rng = np.random.default_rng(seed)
+    rng.choice(block, size=n_qtl, replace=False)
+
+    def draw(b: int) -> np.ndarray:
+        maf = rng.uniform(0.05, 0.5, size=(b, 1))
+        t_hom = np.rint(65536.0 * maf**2).astype(np.uint16)
+        t_het = np.rint(65536.0 * (maf**2 + 2 * maf * (1 - maf))
+                        ).astype(np.uint16)
+        u = rng.integers(0, 65536, size=(b, n), dtype=np.uint16)
+        return (u < t_hom).view(np.int8) + (u < t_het).view(np.int8)
+
+    first = draw(min(block, p))
+    if which == "first":
+        return 0, first
+    nblocks = -(-p // block)
+    check((block * n) % 4 == 0 and nblocks >= 2,
+          "the re-draw's skip needs 4 | 4096·n and two blocks")
+    skip = (nblocks - 2) * (block + block * n // 4)
+    bg = rng.bit_generator
+    if skip and bg.state["has_uint32"]:
+        # the skipped draws end on a kept high half: the last word's
+        bg.advance(skip - 1)
+        word = int(bg.random_raw())
+        st = bg.state
+        st["has_uint32"], st["uinteger"] = 1, word >> 32
+        bg.state = st
+    elif skip:
+        bg.advance(skip)
+    j0 = (nblocks - 1) * block
+    return j0, draw(p - j0)
+
+
+def store_rows(store: str, lo: int, hi: int) -> np.ndarray:
+    """Rows [lo, hi) of a packed store's shards, as bytes, read through
+    its manifest's offsets."""
+    with open(os.path.join(store, "manifest.json")) as f:
+        man = json.load(f)
+    off, nb = man["shard_offsets"], -(-man["n"] // 4)
+    parts = []
+    for k in range(len(off) - 1):
+        a, b = max(lo, off[k]), min(hi, off[k + 1])
+        if a < b:
+            shard = np.memmap(os.path.join(store, f"shard_{k:05d}.bin"),
+                              dtype=np.uint8, mode="r",
+                              shape=(off[k + 1] - off[k], nb))
+            parts.append(np.array(shard[a - off[k] : b - off[k]]))
+    return np.concatenate(parts)
+
+
+def pack_rows(g: np.ndarray) -> np.ndarray:
+    """(b, n) genotypes → the store's 2-bit bytes (genotype j at bits
+    2(j mod 4) of byte j/4)."""
+    b, n = g.shape
+    c = np.zeros((b, -(-n // 4) * 4), dtype=np.uint8)
+    c[:, :n] = g
+    c = c.reshape(b, -1, 4)
+    return c[..., 0] | c[..., 1] << 2 | c[..., 2] << 4 | c[..., 3] << 6
+
+
+def cohort_run_phase(torch, packed, crt, tmp: str, card: str, dev) -> dict:
+    """Phase 22: scripts/cohort_run_torch.py cut to N x COHORT_P, in
+    process through its functions: ``generate`` (its first and last
+    blocks held byte for byte to a numpy re-draw), then ``run`` (am() on
+    the store, COHORT_MAXIT steps, every selection planted), its launches
+    counted and the first at each width held as in phase 20. The store
+    stays for phase 23."""
+    phase(f"22. scripts/cohort_run_torch.py cut to {N} x {COHORT_P}: "
+          "generate (scripts/cohort_run.py's cohort, seed 7; the first and "
+          "last 4096-SNP blocks held byte for byte to a numpy re-draw), run "
+          f"(am() on the store, maxit {COHORT_MAXIT}; every selection "
+          "planted), the launches held as in phase 20")
+    print(card)
+    d = os.path.join(tmp, "cohort")
+    gen = crt.generate(d, N, COHORT_P, device=dev)
+    store = os.path.join(d, "store")
+    t0 = time.perf_counter()
+    for which in ("first", "last"):
+        j0, g = redraw_block(N, COHORT_P, which)
+        same = np.array_equal(pack_rows(g), store_rows(store, j0,
+                                                       j0 + g.shape[0]))
+        print(f"  {which} block (rows {j0}..{j0 + g.shape[0] - 1}) against "
+              f"numpy's re-draw: {'identical' if same else 'DIFFERENT'}")
+        check(same, f"generate's {which} block differs from numpy's draw")
+    redraw_s = time.perf_counter() - t0
+    with open(os.path.join(d, "meta.json")) as f:
+        meta = json.load(f)
+    print(f"generated in {gen['gen_s']:.1f} s (host draws "
+          f"{gen['draw_s']:.1f} s), store {meta['store_bytes'] / 1e9:.3f} "
+          f"GB; re-draw check {redraw_s:.1f} s; planted "
+          f"{meta['qtl_indices']}", flush=True)
+    rec = LaunchRecorder(packed, streamed=True)
+    res, wall, launches = run_counted(torch, packed, lambda: crt.run(
+        d, COHORT_MAXIT, device=dev), rec)
+    events = read_log(os.path.join(d, "scan_log.jsonl"))
+    phases = scan_phases(events)
+    print(f"run wall {wall:.1f} s (phases "
+          + ", ".join(f"{k} " + " / ".join(f"{w:.2f}" for w in v)
+                      for k, v in phases.items())
+          + f"); launches {launches}; selected {res['selected']}, extBIC "
+          f"{res['extbic_path']}; peak device memory "
+          f"{res['peak_device_bytes'] / 1e9:.3f} GB", flush=True)
+    check(res["selected"], "cohort_run_torch's run selected nothing")
+    check(all(j in meta["qtl_indices"] for j in res["selected"]),
+          f"cohort_run_torch's run selected {res['selected']}, not all "
+          f"planted ({meta['qtl_indices']})")
+    check(all(math.isfinite(v) for v in res["extbic_path"]),
+          "a non-finite extBIC")
+    for name in KERNELS:
+        check(launches[name] >= 1, f"{name} was never launched by "
+              "cohort_run_torch's run")
+    kept = slice_checks(torch, packed, rec.kept, "cohort_run_torch's run")
+    rec.kept.clear()
+    return {"dir": d, "gen": gen, "wall_s": wall, "launches": launches,
+            "selected": res["selected"], "phases": phases,
+            "peak_bytes": res["peak_device_bytes"], "kept_rel_err": kept}
+
+
+class BenchRuns:
+    """``bench_cuda.py --quick --config C`` in a process of its own for
+    each config given, all started at once (each one's output in a file
+    under ``tmp``; the cohort directory is EAGLE_COHORT_DIR); on leaving a
+    ``with`` block every one still running is killed."""
+
+    def __init__(self, tmp: str, configs, cohort_dir: str):
+        env = dict(os.environ, EAGLE_COHORT_DIR=cohort_dir)
+        self.runs = {}
+        for config in configs:
+            path = os.path.join(tmp, f"bench_{config}.out")
+            with open(path, "w") as log:
+                proc = subprocess.Popen(
+                    [sys.executable, os.path.join(ROOT, "bench_cuda.py"),
+                     "--quick", "--config", config, "--watchdog", "300"],
+                    cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+            self.runs[config] = (proc, path, time.perf_counter())
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        for proc, _, _ in self.runs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        return False
+
+    def result(self, config: str) -> dict:
+        """The config's last JSON line (its wall beside it), once its
+        process ends; fails on a non-zero exit or no line."""
+        proc, path, t0 = self.runs[config]
+        try:
+            rc = proc.wait(timeout=360)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = "killed after 360 s"
+        wall = time.perf_counter() - t0
+        with open(path) as f:
+            text = f.read()
+        lines = [ln for ln in text.splitlines() if ln.startswith("{")]
+        check(rc == 0 and lines, f"bench_cuda.py --config {config} failed "
+              f"(rc {rc}): {text[-1500:]}")
+        print(f"  {config:11s} {wall:5.1f} s: {lines[-1]}", flush=True)
+        return dict(json.loads(lines[-1]), wall_s=wall)
+
+
+def bench_phase(torch, cohort: dict, early: BenchRuns, card: str) -> dict:
+    """Phase 23: ``bench_cuda.py --quick --config X`` for every config, a
+    process each: sweep, eigsweep and multitrait (``early``) started with
+    phase 22 and run beside it; then cohort-full on phase 22's store, then
+    cohort alone on the card (its ballast takes the rest of it). Each last
+    line must carry bench.py's metric and unit (BENCH_LINES), a value > 0
+    and no error, and name this card; cohort must have read the store,
+    cohort-full launched packed_dot. Deletes phase 22's cohort."""
+    phase("23. bench_cuda.py --quick, every config in a process of its own "
+          "(sweep, eigsweep and multitrait started with phase 22, beside "
+          "it; cohort-full on phase 22's store; cohort alone on the card)")
+    print(card)
+    out = {c: early.result(c) for c in early.runs}
+    torch.cuda.empty_cache()
+    for config in ("cohort-full", "cohort"):
+        with BenchRuns(os.path.dirname(cohort["dir"]), (config,),
+                       cohort["dir"]) as one:
+            out[config] = one.result(config)
+    check(set(out) == set(BENCH_LINES), f"configs run: {sorted(out)}")
+    for config, js in out.items():
+        metric, unit = BENCH_LINES[config]
+        det = js["detail"]
+        check((js["metric"], js["unit"]) == (metric, unit),
+              f"{config}: {js['metric']} in {js['unit']}, bench.py's "
+              f"{metric} in {unit}")
+        check(js["value"] > 0 and "error" not in det,
+              f"{config} gave no result: {js}")
+        check(det["device"] == torch.cuda.get_device_name(0),
+              f"{config} ran on {det['device']}")
+    coh = out["cohort"]["detail"]
+    check(coh["host"] == "store" and coh["read_bytes"] > 0,
+          f"the cohort config did not read the store: {coh}")
+    full = out["cohort-full"]["detail"]
+    check(full["launches"]["packed_dot"] > 0,
+          f"cohort-full launched no packed_dot: {full['launches']}")
+    check("error" not in full["multitrait_matfree"],
+          f"cohort-full's multi-trait row failed: "
+          f"{full['multitrait_matfree']}")
+    shutil.rmtree(cohort["dir"])
+    return out
+
+
 def run(args) -> None:
     import torch
 
@@ -2900,12 +3148,18 @@ def run(args) -> None:
                                   main, cfg2, dev)
         store = store_phase(torch, ep, packed, engine_torch, tmp, card,
                             main, streamed, cfg2, zmat["cohort"], dev)
-        axes = load_axes()
+        axes = load_script("biobank_axes_torch")
         n_axis = n_axis_phase(torch, packed, engine_torch, axes, tmp, card,
                               dev)
         p_axis = p_axis_phase(torch, packed, axes, tmp, card, dev)
+        with BenchRuns(tmp, ("sweep", "eigsweep", "multitrait"),
+                       os.path.join(tmp, "cohort")) as early:
+            cohort = cohort_run_phase(torch, packed,
+                                      load_script("cohort_run_torch"), tmp,
+                                      card, dev)
+            benches = bench_phase(torch, cohort, early, card)
 
-    phase("22. kernels")
+    phase("24. kernels")
     by_path = {"am_matfree": main["launches"],
                "summary_am_matfree": flow["summary_matfree_launches"],
                "am_matfree_zmat": zmat["launches"],
@@ -2917,6 +3171,7 @@ def run(args) -> None:
     by_path["am_matfree_store"] = store["launches"]
     by_path["biobank_n_axis"] = n_axis["launches"]
     by_path["biobank_p_axis"] = p_axis["launches"]
+    by_path["cohort_run_matfree"] = cohort["launches"]
     w1 = world1["warm"]
     print(f"world 1 (NCCL): am(engine='sharded') {world1['wall_s']:.1f} s, "
           f"mmt_psum {w1['mmt_psum']['ms']:.3f} ms, "
@@ -2971,6 +3226,11 @@ def run(args) -> None:
           f"{p_axis['gen']['store_s']:.1f} s, run_p {p_axis['wall_s']:.1f} "
           f"s, sweep {p_axis['sweep_s']:.2f} s ({p_axis['snps_per_s']:.0f} "
           f"SNPs/s), argmax {p_axis['argmax']}")
+    print(f"cohort_run_torch at {N} x {COHORT_P} ({card}): generate "
+          f"{cohort['gen']['gen_s']:.1f} s, run {cohort['wall_s']:.1f} s, "
+          f"selected {cohort['selected']}; bench_cuda.py --quick: "
+          + ", ".join(f"{c} {b['value']} {b['unit']} ({b['wall_s']:.1f} s)"
+                      for c, b in benches.items()))
     entries = []
     head = 64
     for name, meta in KERNELS.items():
@@ -2992,7 +3252,9 @@ def run(args) -> None:
             "launches_by_path": {
                 **{k: v[name] for k, v in by_path.items()},
                 "exact_streamed": streamed["exact_launches"][name],
-                "exact_store": store["exact_launches"][name]},
+                "exact_store": store["exact_launches"][name],
+                "bench_cohort_full_quick": benches["cohort-full"]["detail"][
+                    "launches"][name]},
             "summary_am_matfree_rel_err":
                 flow["summary_matfree_rel_err"][name],
             "two_rank_rel_err": max(o["matfree"]["rel_err"][name]
@@ -3009,7 +3271,8 @@ def run(args) -> None:
                             for (n, p), res in axis_timing.items()
                             if name in res},
             "axis_rel_err": max(n_axis["kept_rel_err"][name],
-                                p_axis["kept_rel_err"][name])})
+                                p_axis["kept_rel_err"][name]),
+            "cohort_run_rel_err": cohort["kept_rel_err"][name]})
         if name == "packed_dot":
             entries[-1]["am_multi_wide_rel_err"] = multi["wide_rel_err"]
             entries[-1]["am_multi_widths"] = {

@@ -508,7 +508,14 @@ def stack_reserve(n: int, p: int, config: EagleConfig, sms: int,
         U (``set_eigenbasis``); four above ``host_eigh_max_n``, where the
         eigendecomposition runs on the device (K, U and the solver's
         workspace of about two more);
-      - one tile's recoded W (compute_dtype) and its image T (f32);
+      - one tile's recoded W (compute_dtype), its image T (f32, or the
+        Lp-form sweep's W·L) and the scorer's two tile-sized f32
+        temporaries (T∘s and its square in ``score_from_T``, the square
+        of W·L in ``score_tile_sqrt``);
+      - the unpack's temporaries, a row chunk of the tile at a time
+        (packed.recode: the chunk's bytes as int64, the table's gathered
+        f32 codes, their NaN mask and the imputed values: 96·nw + 5·n
+        bytes a row);
       - the W and T caches when ``cache_device`` holds (both while T is
         built);
     a row, the matrix-free engine
@@ -531,7 +538,9 @@ def stack_reserve(n: int, p: int, config: EagleConfig, sms: int,
     int8_row = n + 48 * packed.words_per_row(n) if int8_rows else 0
     if not stat_cols:
         square = 4 if n > config.host_eigh_max_n else 1
-        fixed += square * n * n * 4 + tile_snps * n * (itemsize + 4)
+        unpack_rows = min(packed.unpack_chunk_rows(n), tile_snps)
+        fixed += (square * n * n * 4 + tile_snps * n * (itemsize + 3 * 4)
+                  + unpack_rows * (96 * packed.words_per_row(n) + 5 * n))
         if cache_device:
             fixed += p * n * (itemsize + 4)
         return int(fixed), int8_row

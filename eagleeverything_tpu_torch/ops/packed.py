@@ -86,7 +86,7 @@ def unpack_codes(Wp: torch.Tensor, n: int) -> torch.Tensor:
     return codes.reshape(Wp.shape[0], -1)[:, :n]
 
 
-def _row_chunk(n: int) -> int:
+def unpack_chunk_rows(n: int) -> int:
     """Rows per chunk so one unpacked f32 chunk stays near 256 MB."""
     return max(1, (1 << 26) // max(n, 1))
 
@@ -96,8 +96,8 @@ def row_means(Wp: torch.Tensor, n: int) -> torch.Tensor:
     gets 1.0 (so W = 0), as engine_jax._packed_rowmeans_jit."""
     p = Wp.shape[0]
     out = torch.ones(p, dtype=torch.float32, device=Wp.device)
-    for i0 in range(0, p, _row_chunk(n)):
-        codes = unpack_codes(Wp[i0 : i0 + _row_chunk(n)], n)
+    for i0 in range(0, p, unpack_chunk_rows(n)):
+        codes = unpack_codes(Wp[i0 : i0 + unpack_chunk_rows(n)], n)
         valid = codes != 3
         cnt = valid.sum(dim=1)
         # integer sums are exact, so the f32 quotient matches the
@@ -116,7 +116,7 @@ def recode(Wp: torch.Tensor, means: torch.Tensor, n: int) -> torch.Tensor:
     rows = Wp.shape[0]
     out = torch.empty((rows, n), dtype=torch.float32, device=Wp.device)
     table = _byte_table(Wp.device, float("nan"))
-    step = _row_chunk(n)
+    step = unpack_chunk_rows(n)
     for i0 in range(0, rows, step):
         byts = _bytes(Wp[i0 : i0 + step])
         # one row of the table a byte (index_select: a plain gather of
@@ -133,7 +133,7 @@ def packed_dot_plain(Wp: torch.Tensor, A: torch.Tensor, means: torch.Tensor,
     """Plain version of :func:`packed_dot`, row chunk by row chunk."""
     p = Wp.shape[0]
     D = torch.empty((p, A.shape[1]), dtype=torch.float32, device=A.device)
-    step = _row_chunk(n)
+    step = unpack_chunk_rows(n)
     for i0 in range(0, p, step):
         D[i0 : i0 + step] = recode(Wp[i0 : i0 + step],
                                    means[i0 : i0 + step], n) @ A
@@ -145,7 +145,7 @@ def packed_tdot_plain(Wp: torch.Tensor, T: torch.Tensor, means: torch.Tensor,
     """Plain version of :func:`packed_tdot`, row chunk by row chunk."""
     p = Wp.shape[0]
     out = torch.zeros((n, T.shape[1]), dtype=torch.float32, device=T.device)
-    step = _row_chunk(n)
+    step = unpack_chunk_rows(n)
     for i0 in range(0, p, step):
         out += recode(Wp[i0 : i0 + step], means[i0 : i0 + step],
                       n).T @ T[i0 : i0 + step]
@@ -158,7 +158,7 @@ def kernel_matvec_plain(Wp: torch.Tensor, V: torch.Tensor,
     recoded once and serves both products."""
     p = Wp.shape[0]
     out = torch.zeros((n, V.shape[1]), dtype=torch.float32, device=V.device)
-    step = _row_chunk(n)
+    step = unpack_chunk_rows(n)
     for i0 in range(0, p, step):
         Wc = recode(Wp[i0 : i0 + step], means[i0 : i0 + step], n)
         out += Wc.T @ (Wc @ V)

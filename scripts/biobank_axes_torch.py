@@ -42,6 +42,7 @@ import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -103,6 +104,37 @@ def protocol_config():
 # ---------------------------------------------------------------------------
 
 
+# 64-bit words a thread of raw_words draws at least
+RAW_PART_WORDS = 1 << 22
+
+
+def raw_words(bg, out: np.ndarray) -> None:
+    """Fill ``out`` (uint32, even length 2k) with ``bg.random_raw(k)``'s
+    words, low half first, drawn by up to eight threads, each from a copy
+    of the bit generator advanced to its part (PCG64 fills, and numpy
+    copies, without the interpreter lock); ``bg`` ends advanced past all
+    k words, which clears its kept 32-bit half. A bit generator without
+    ``advance`` draws them alone."""
+    k = out.size // 2
+    parts = min(os.cpu_count() or 1, 8, k // RAW_PART_WORDS)
+    if parts < 2 or not hasattr(bg, "advance"):
+        out[:] = bg.random_raw(k).view(np.uint32)
+        return
+    cut = [k * i // parts for i in range(parts + 1)]
+    state = bg.state
+
+    def fill(i: int) -> None:
+        g = type(bg)()
+        g.state = state
+        g.advance(cut[i])
+        out[2 * cut[i] : 2 * cut[i + 1]] = g.random_raw(
+            cut[i + 1] - cut[i]).view(np.uint32)
+
+    with ThreadPoolExecutor(parts) as pool:
+        list(pool.map(fill, range(parts)))
+    bg.advance(k)
+
+
 def uint16_draws(rng: np.random.Generator, count: int) -> np.ndarray:
     """``rng.integers(0, 65536, size=count, dtype=np.uint16)``: the same
     values, and the same generator state after it, from the bit
@@ -111,37 +143,106 @@ def uint16_draws(rng: np.random.Generator, count: int) -> np.ndarray:
     out as two 32-bit draws, low half first, keeping the high half for the
     next (``has_uint32``/``uinteger`` in its state). So the values are the
     raw words' little-endian 16-bit pieces, behind a kept half if there is
-    one — about four times faster than the draw itself."""
+    one, the words drawn by several threads (:func:`raw_words`): many times
+    faster than the draw itself."""
     bg = rng.bit_generator
     st = bg.state
     need = (count + 1) // 2          # 32-bit draws the fill takes
-    parts = []
+    words = np.empty(need, dtype=np.uint32)
     # after the fill: whether a high half is kept, and the last word's
     # high half (numpy leaves it in ``uinteger`` once it is handed out)
     has, high = st["has_uint32"], st["uinteger"]
-    if has and need:
+    lead = 1 if has and need else 0
+    if lead:
         has = 0
-        parts.append(np.array([high], dtype=np.uint32))
-        need -= 1
-    raw = bg.random_raw(need // 2).view(np.uint32)
-    parts.append(raw)
-    if raw.size:
-        high = int(raw[-1])
-    if need % 2:
+        words[0] = high
+    k = (need - lead) // 2
+    raw_words(bg, words[lead : lead + 2 * k])
+    if k:
+        high = int(words[lead + 2 * k - 1])
+    if (need - lead) % 2:
         last = bg.random_raw(1).view(np.uint32)
-        parts.append(last[:1])
+        words[-1] = last[0]
         has, high = 1, int(last[1])
     st = bg.state
     st["has_uint32"], st["uinteger"] = has, high
     bg.state = st
-    words = parts[0] if len(parts) == 1 else np.concatenate(parts)
     return words.view("<u2")[:count]
 
 
-def _check_draws(rng: np.random.Generator) -> None:
-    """Hold :func:`uint16_draws` to numpy's own draw on copies of ``rng``
-    (an odd count, then an even one, values and states), so that a numpy
-    whose fill differs stops the run before it writes another cohort."""
+def _set_after(bg, state: dict, stream: np.ndarray, lead: int,
+               c: int) -> None:
+    """Leave ``bg`` where numpy leaves it after ``c`` 32-bit draws from
+    ``state``, whose draws are ``stream`` (the kept half first when
+    ``lead``): the kept half, then whole 64-bit words, the last one's
+    high half kept when an odd count remains; ``uinteger`` holds the last
+    high half handed out or kept."""
+    has, high = state["has_uint32"], state["uinteger"]
+    if lead and c:
+        has, c = 0, c - 1
+    w, odd = divmod(c, 2)
+    bg.state = state
+    if w + odd:
+        bg.advance(w + odd)
+    if w:
+        high = int(stream[lead + 2 * w - 1])
+    if odd:
+        has, high = 1, int(stream[lead + 2 * w + 1])
+    st = bg.state
+    st["has_uint32"], st["uinteger"] = has, high
+    bg.state = st
+
+
+def ternary_rows(rng: np.random.Generator, rows: int, p: int,
+                 device="cpu", batch_bytes: int = 1 << 28):
+    """``rng.integers(0, 3, size=p, dtype=np.uint8)`` ``rows`` times in a
+    row: yields the same rows (uint8 numpy arrays) and leaves the
+    generator where numpy leaves it. numpy reads each value off one byte
+    of its 32-bit draws, low byte first, a row starting on a fresh 32-bit
+    draw: a byte b gives (3·b) >> 8, and b = 0 is rejected (Lemire's method
+    for a range of 3, whose threshold is 1). So a batch of rows is one
+    long stream of 32-bit draws, taken from raw words by several threads
+    (:func:`raw_words`) from a copy of the generator, and each row's
+    bytes are scanned on ``device``: its p-th accepted byte says where the
+    next row starts."""
+    bg = rng.bit_generator
+    dev = torch.device(device)
+    # 32-bit draws a row may take: its p bytes, the rejected ones (b = 0,
+    # 1 in 256: p/256 expected; a margin of twice that and 64 more)
+    span = -(-(p + p // 128 + 64) // 4)
+    done = 0
+    while done < rows:
+        state = bg.state
+        lead = 1 if state["has_uint32"] else 0
+        batch = max(1, min(rows - done, batch_bytes // (4 * span)))
+        k = (batch * span + 1) // 2
+        stream = np.empty(lead + 2 * k, dtype=np.uint32)
+        if lead:
+            stream[0] = state["uinteger"]
+        g = type(bg)()
+        g.state = state
+        raw_words(g, stream[lead:])
+        b = torch.from_numpy(stream.view(np.uint8)).to(dev)
+        s = 0                        # 32-bit draws this batch has used
+        while done < rows and 4 * (s + span) <= b.numel():
+            region = b[4 * s : 4 * (s + span)]
+            ok = region != 0
+            last = int(torch.searchsorted(torch.cumsum(ok, 0, dtype=torch.int32),
+                                          p))
+            if last >= region.numel():
+                raise RuntimeError("a row rejected more bytes than its margin")
+            vals = region[: last + 1][ok[: last + 1]].to(torch.int32)
+            yield ((vals * 3) >> 8).to(torch.uint8).cpu().numpy()
+            s += last // 4 + 1
+            done += 1
+        _set_after(bg, state, stream, lead, s)
+
+
+def _check_draws(rng: np.random.Generator, device="cpu") -> None:
+    """Hold :func:`uint16_draws` and :func:`ternary_rows` to numpy's own
+    draws on copies of ``rng`` (odd and even counts, values and states),
+    so that a numpy whose fill differs stops the run before it writes
+    another cohort."""
     a = np.random.Generator(type(rng.bit_generator)())
     b = np.random.Generator(type(rng.bit_generator)())
     a.bit_generator.state = b.bit_generator.state = rng.bit_generator.state
@@ -152,6 +253,12 @@ def _check_draws(rng: np.random.Generator) -> None:
                 and a.bit_generator.state == b.bit_generator.state):
             raise RuntimeError("uint16_draws differs from numpy's "
                                "integers(0, 65536, dtype=uint16)")
+    want = [a.integers(0, 3, size=1001, dtype=np.uint8) for _ in range(3)]
+    got = list(ternary_rows(b, 3, 1001, device))
+    if not (all(np.array_equal(x, y) for x, y in zip(want, got))
+            and a.bit_generator.state == b.bit_generator.state):
+        raise RuntimeError("ternary_rows differs from numpy's "
+                           "integers(0, 3, dtype=uint8)")
 
 
 # ---------------------------------------------------------------------------
@@ -374,10 +481,11 @@ def gen_p(dir: str, n_override: int = 0, p_override: int = 0,
           store_only: bool = False, device="cpu") -> dict:
     """The p-axis cohort: ``<dir>/geno_p.txt`` (one no-space ASCII row an
     individual, written straight from its uint8 draws as the JAX script
-    writes it), ``y_p.npy`` and ``meta_p.json``. With ``store_only`` the
-    same rows go into ``<dir>/store_p`` (4 packed shards, the bytes the
-    ingest writes from the text; transposed and packed on ``device``) and
-    no text is written. Returns the timings."""
+    writes it; the draws are numpy's, read off raw words and scanned on
+    ``device`` by :func:`ternary_rows`), ``y_p.npy`` and ``meta_p.json``.
+    With ``store_only`` the same rows go into ``<dir>/store_p`` (4 packed
+    shards, the bytes the ingest writes from the text; transposed and
+    packed on ``device``) and no text is written. Returns the timings."""
     from eagleeverything_tpu_torch.io.genostore import GenotypeStore
 
     n = n_override or P_AXIS["n"]
@@ -387,13 +495,13 @@ def gen_p(dir: str, n_override: int = 0, p_override: int = 0,
     rng = np.random.default_rng(seed)
     qtl_idx = np.sort(rng.choice(p, size=n_qtl, replace=False))
     qtl_geno = rng.integers(0, 3, size=(n_qtl, n), dtype=np.uint8)
+    _check_draws(rng, device)
     path = os.path.join(dir, "geno_p.txt")
     rows = np.empty((n, p), dtype=np.uint8) if store_only else None
     t0 = time.perf_counter()
     with (contextlib.nullcontext() if store_only
           else open(path, "wb", buffering=1 << 22)) as f:
-        for i in range(n):
-            row = rng.integers(0, 3, size=p, dtype=np.uint8)
+        for i, row in enumerate(ternary_rows(rng, n, p, device)):
             row[qtl_idx] = qtl_geno[:, i]
             if store_only:
                 rows[i] = row

@@ -99,7 +99,8 @@ def p_cohorts(tmp_path_factory):
 
 
 @pytest.mark.parametrize("warm", [0, 1, 2, 3])
-@pytest.mark.parametrize("count", [0, 1, 2, 3, 1000, 1001])
+# 2**25 + 1 values take 2**23 + 1 words: raw_words draws them in two parts
+@pytest.mark.parametrize("count", [0, 1, 2, 3, 1000, 1001, 2**25 + 1])
 def test_uint16_draws_are_numpys(warm, count):
     """The raw-word form of a full-range uint16 draw gives numpy's values
     and leaves the generator where numpy leaves it, from either half of a
@@ -111,6 +112,26 @@ def test_uint16_draws_are_numpys(warm, count):
     want = a.integers(0, 65536, size=count, dtype=np.uint16)
     got = axes.uint16_draws(b, count)
     assert got.dtype == np.uint16 and np.array_equal(want, got)
+    assert a.bit_generator.state == b.bit_generator.state
+    assert np.array_equal(a.uniform(size=5), b.uniform(size=5))
+
+
+@pytest.mark.parametrize("warm", [0, 1])
+@pytest.mark.parametrize("p", [1, 5, 1001])
+@pytest.mark.parametrize("batch_bytes", [64, 1 << 28])
+def test_ternary_rows_are_numpys(warm, p, batch_bytes):
+    """Rows read off the 32-bit draws' bytes are numpy's bounded uint8
+    rows, and the generator is left where numpy leaves it, from either
+    half of a kept draw, in one batch or one batch a row."""
+    a = np.random.default_rng(12)
+    b = np.random.default_rng(12)
+    a.integers(0, 65536, size=warm, dtype=np.uint16)
+    b.integers(0, 65536, size=warm, dtype=np.uint16)
+    want = [a.integers(0, 3, size=p, dtype=np.uint8) for _ in range(5)]
+    got = list(axes.ternary_rows(b, 5, p, batch_bytes=batch_bytes))
+    assert len(got) == 5
+    for w, g in zip(want, got):
+        assert g.dtype == np.uint8 and np.array_equal(w, g)
     assert a.bit_generator.state == b.bit_generator.state
     assert np.array_equal(a.uniform(size=5), b.uniform(size=5))
 

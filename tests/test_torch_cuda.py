@@ -87,6 +87,38 @@ def test_stack_and_scan_on_card_match_cpu(cuda):
         np.testing.assert_allclose(got, ref, rtol=1e-3, atol=1e-2)
 
 
+def test_exact_uncached_passes_fit_their_reserve(cuda):
+    """With no device tile cache, the exact engine's passes (MMt, the
+    Lp-form sweep, an eigenbasis sweep) recode each 31 232-SNP tile anew;
+    their peak beside the resident stack stays within the fixed part of
+    stack_reserve, which is all a streamed stack's ring leaves free."""
+    n, p = 4096, 40000
+    rng = np.random.default_rng(4096)
+    G = rng.integers(0, 3, size=(n, p)).astype(np.int8)
+    cfg = EagleConfig(device_cache_gb=1e-6)
+    sc = engine_torch.TiledScan(engine_torch.DenseTileSource(G), cfg, cuda,
+                                matfree=False)
+    assert not sc.cache_device and sc.tile_snps == 31232
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    fixed, per_row = engine_torch.stack_reserve(n, p, cfg, sms, False, 0,
+                                                sc.tile_snps)
+    assert per_row == 0
+    sc._packed_stack()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    L = rng.standard_normal((n, n)).astype(np.float32)
+    t = sc.sweep(L, rng.standard_normal(n), 1.0)
+    sc.compute_K()
+    sc.set_eigenbasis(L)
+    t_eig = sc.sweep_eig(rng.standard_normal(n), np.linalg.qr(
+        rng.standard_normal((n, 8)))[0], rng.standard_normal(n), 1.0)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(cuda) - base
+    assert np.all(np.isfinite(t)) and np.all(np.isfinite(t_eig))
+    assert peak <= fixed, (peak, fixed)
+
+
 @pytest.mark.parametrize("slots", [2, 3])
 def test_streamed_stack_on_card_matches_resident(cuda, monkeypatch, slots):
     """The copy ring on the card: the stack forced to stream from pinned

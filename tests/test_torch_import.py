@@ -53,7 +53,8 @@ _FORBIDDEN = re.compile(
 
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")]
-    + ["chip_smoke.py", "scripts/biobank_axes_torch.py"]))
+    + ["chip_smoke.py", "scripts/biobank_axes_torch.py", "bench_cuda.py",
+       "scripts/cohort_run_torch.py"]))
 def test_port_sources_import_no_jax(path):
     src = (ROOT / path).read_text()
     assert not _FORBIDDEN.search(src), path
