@@ -147,12 +147,31 @@ Phases, each fatal when its check fails:
    bench.py's metric and unit, a value, no error; the cohort config read
    the store on every sweep and cohort-full launched packed_dot. Phase
    22's store is then deleted;
-24. a summary line per kernel and the kernels' JSON line (launches by path,
+Phases 24, 25 and 27 run after phase 14, while the CPU legs finish (the
+card would wait for them in phase 15); phase 26 runs after phase 23.
+
+24. scripts/debug_resume_fit_torch.py --exact on phase 5's parity cohort:
+   the REML profiles of [1] and [1, its first selection] on the
+   matrix-free engine at both protocols (launches counted) and the exact
+   one by both routes (eigenbasis, blocked Cholesky on the card): the
+   tight protocol's profiles within 1e-3 away from the grid's ends, each
+   matrix-free δ̂ a maximiser of the exact profile, the two exact routes
+   within 1e-8 on the grid and its tail e⁹…e¹⁶, their δ → ∞ limits
+   equal;
+25. examples/python_api_torch.py on the card, beside its CPU leg (a
+   process each): the same selections, extBIC within rtol 1e-6;
+26. scripts/ingest_bench_torch.py --gb 0.5 --format both: MB/s for each
+   format through the native ingest;
+27. scripts/weakscale_torch.py --device cuda --quick --share-card: N = 1,
+   and N = 2 with both ranks on the one card (flagged shared_card, no
+   scaling measurement), K1/K2 launched in its phases (b) and (e);
+28. a summary line per kernel and the kernels' JSON line (launches by path,
    each read around exactly that call: the matrix-free am, summary_am,
    am with Zmat, am_multi, fpr4am, each rank of phase 17's matrix-free am,
    phase 18's streamed matrix-free and exact am, phase 19's, the two
-   axes of phases 20-21, phase 22's run, and phase 23's cohort-full),
-   then the last line ``{"ok": true, "device": {...}}``.
+   axes of phases 20-21, phase 22's run, phase 23's cohort-full, phase
+   24's profile and rank 0 of each point of phase 27), then the last line
+   ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside a checkout, it exits non-zero with no result line.
 """
@@ -3094,6 +3113,189 @@ def bench_phase(torch, cohort: dict, early: BenchRuns, card: str) -> dict:
     return out
 
 
+def debug_fit_phase(torch, packed, tmp: str, parity_cohort, am_card: dict,
+                    dev) -> dict:
+    """Phase 24: scripts/debug_resume_fit_torch.py --exact on phase 5's
+    parity cohort: the REML profile of the intercept model and of it plus
+    phase 5's first selection, on the matrix-free engine (K1/K2 on the
+    card, at both protocols, the launches counted around the call) and on
+    the exact engine by both routes (the eigenbasis; a blocked f64
+    Cholesky of K + δI on the card at each δ). The tight protocol's
+    profiles must agree with the exact ones within 1e-3 away from the
+    grid's ends, each matrix-free δ̂ must be a maximiser of
+    the exact profile (within 0.05 log-likelihood units; the intercept
+    model's δ̂ within 0.1 in log δ), and the two exact routes agree to
+    1e-8 on the grid and its tail, with equal δ → ∞ limits."""
+    c = parity_cohort
+    add = int(am_card["indices"][0])
+    phase(f"24. scripts/debug_resume_fit_torch.py --exact at {c.n} x {c.p}: "
+          f"the REML profiles of [1] and [1, {add}], matrix-free against "
+          "exact (eigenbasis and blocked Cholesky)")
+    dbg = load_script("debug_resume_fit_torch")
+    d = os.path.join(tmp, "debug_fit")
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "meta.json"), "w") as f:
+        json.dump({"n": c.n, "p": c.p}, f)
+    np.save(os.path.join(d, "y.npy"), c.y)
+    os.symlink(c.store_dir, os.path.join(d, "store"))
+    res, wall, launches = run_counted(torch, packed, lambda: dbg.run(
+        d, [], add, True, ["default", "tight"], device=dev,
+        out=os.path.join(d, "f4.json"), routes=("eigh", "cholesky")))
+    ex, ch = res["exact"], res["exact_cholesky"]
+
+    def gaps(proto: str) -> dict:
+        out = {}
+        for name, m in res["matfree"][proto]["models"].items():
+            a = np.array([r["ll"] for r in m["profile"]])
+            b = np.array([r["ll"] for r in ex["models"][name]["profile"]])
+            out[name] = float(np.max(np.abs(a[2:-2] / b[2:-2] - 1.0)))
+        return out
+
+    # the default protocol's 32 probes leave an SLQ error near 1e-3 of the
+    # log-likelihood at the grid's small δ; the tight one is held to it
+    print(f"profile gaps away from the grid's ends: default {gaps('default')}"
+          f", tight {gaps('tight')}")
+    mf = res["matfree"]["tight"]
+    worst = max(gaps("tight").values())
+    for name, m in mf["models"].items():
+        b = np.array([r["ll"] for r in ex["models"][name]["profile"]])
+        gap = gaps("tight")[name]
+        e = ex["models"][name]
+        print(f"{name}: δ̂ matrix-free {m['delta_hat']:.4g} exact "
+              f"{e['delta_hat']:.4g}; LL {m['loglik']:.4f} / "
+              f"{e['loglik']:.4f}, exact LL at the matrix-free δ̂ "
+              f"{m['exact_ll_at_delta_hat']:.4f}; log|H| there "
+              f"{m['logdet_at_delta_hat']:.3f} (SLQ) / "
+              f"{m['exact_logdet_at_delta_hat']:.3f}; profile gap {gap:.2e}")
+        check(gap < 1e-3, f"{name}: the profiles differ by {gap:.2e}")
+        check(m["exact_ll_at_delta_hat"] > e["loglik"] - 0.05,
+              f"{name}: the matrix-free δ̂ is no maximiser of the exact "
+              "profile")
+        for rows in ("profile", "tail"):
+            chol = [r["ll"] for r in ch["models"][name][rows]]
+            eig = [r["ll"] for r in ex["models"][name][rows]]
+            check(np.allclose(chol, eig, rtol=1e-8, atol=0.0),
+                  f"{name}: the Cholesky route's {rows} differs from the "
+                  "eigenbasis")
+        check(ch["models"][name]["loglik_limit"]
+              == ex["models"][name]["loglik_limit"],
+              f"{name}: the two routes' δ → ∞ limits differ")
+    check(np.sign(mf["extbic_change"]) == np.sign(ex["extbic_change"]),
+          "the engines' extBIC changes differ in sign")
+    print(f"extBIC change for {add}: matrix-free {mf['extbic_change']:.3f} "
+          f"(hinted {mf['extbic_change_hinted']:.3f}), exact "
+          f"{ex['extbic_change']:.3f}; Cholesky residual "
+          f"{ch['chol_residual']:.2e} ({ch['factorizations']} factorisations"
+          f", {ch['factor_s']:.2f} s); {wall:.1f} s; launches {launches}",
+          flush=True)
+    return {"launches": launches, "wall_s": wall, "profile_gap": worst,
+            "extbic_change": {"matfree": mf["extbic_change"],
+                              "exact": ex["extbic_change"]}}
+
+
+def vignette_phase(tmp: str) -> dict:
+    """Phase 25: examples/python_api_torch.py on the card and, beside it,
+    its CPU leg (a process each): the same selections, extBIC within rtol
+    1e-6, both engines agreeing in each."""
+    phase("25. examples/python_api_torch.py on the card and its CPU leg")
+    script = os.path.join(ROOT, "examples", "python_api_torch.py")
+    procs, logs = {}, {}
+    try:
+        for leg in ("cpu", "cuda"):
+            logs[leg] = open(os.path.join(tmp, f"vignette_{leg}.log"), "w+")
+            env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="4")
+            procs[leg] = subprocess.Popen(
+                [sys.executable, script, "--device", leg, "--plots",
+                 os.path.join(tmp, f"vignette_{leg}")], cwd=ROOT, env=env,
+                stdout=logs[leg], stderr=subprocess.STDOUT)
+        t0 = time.perf_counter()
+        for leg, pr in procs.items():
+            pr.wait(timeout=300)
+        wall = time.perf_counter() - t0
+    finally:
+        for pr in procs.values():
+            if pr.poll() is None:
+                pr.kill()
+            pr.wait()
+    out = {}
+    for leg, f in logs.items():
+        f.seek(0)
+        text = f.read()
+        f.close()
+        check(procs[leg].returncode == 0, f"the vignette's {leg} leg failed "
+              f"(rc {procs[leg].returncode}): {text[-2000:]}")
+        out[leg] = json.loads(text.strip().splitlines()[-1])
+    got, want = out["cuda"], out["cpu"]
+    check(got["selected"] == want["selected"] == got["matfree_selected"],
+          f"the vignette selected {got['selected']} on the card, "
+          f"{want['selected']} on the CPU")
+    gap = rel_gap(got["extbic_path"], want["extbic_path"])
+    check(gap < 1e-6, f"the vignette's extBIC paths differ by {gap:.2e}")
+    print(f"selected {got['selected']} on both legs (extBIC gap {gap:.2e}), "
+          f"λ {got['lambda']:.3f} (card) / {want['lambda']:.3f} (CPU); "
+          f"plots {got['plots']}; both legs {wall:.1f} s", flush=True)
+    return {"selected": got["selected"], "wall_s": wall}
+
+
+def ingest_bench_phase(tmp: str, card: str) -> dict:
+    """Phase 26: scripts/ingest_bench_torch.py --gb 0.5 --format both on
+    the card's host: MB/s for each format through the native ingest."""
+    phase("26. scripts/ingest_bench_torch.py --gb 0.5 --format both")
+    res = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "scripts",
+                                      "ingest_bench_torch.py"),
+         "--gb", "0.5", "--format", "both", "--dir",
+         os.path.join(tmp, "ingest_bench")], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+        text=True, timeout=300)
+    check(res.returncode == 0, f"ingest_bench_torch.py failed: "
+          f"{res.stderr[-2000:]}")
+    results = json.loads(res.stdout.strip().splitlines()[-1])["results"]
+    check([r["format"] for r in results] == ["vcf", "text"],
+          f"ingest_bench_torch.py reported {results}")
+    for r in results:
+        check(r["mb_per_s"] > 0 and r["parser"] == "native",
+              f"no native MB/s for {r['format']}: {r}")
+        print(f"{r['format']}: {r['input_gb']} GB ({r['n']} x {r['p']}) in "
+              f"{r['wall_s']} s, {r['mb_per_s']} MB/s, {r['snps_per_s']} "
+              f"SNPs/s, store {r['store_gb']} GB ({card}'s host)",
+              flush=True)
+    return {r["format"]: r for r in results}
+
+
+def weakscale_phase(tmp: str) -> dict:
+    """Phase 27: scripts/weakscale_torch.py --device cuda --quick
+    --share-card: N = 1 on the card, N = 2 with both ranks on it over gloo
+    (flagged shared_card: no scaling measurement), each point's K1/K2
+    launches in (b) and (e) counted on rank 0."""
+    phase("27. scripts/weakscale_torch.py --device cuda --quick --share-card")
+    out = os.path.join(tmp, "weakscale.json")
+    res = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "scripts", "weakscale_torch.py"),
+         "--device", "cuda", "--quick", "--share-card", "--out", out,
+         "--timeout", "240"], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="4"),
+        capture_output=True, text=True, timeout=600)
+    print(res.stdout[-2500:], flush=True)
+    check(res.returncode == 0, f"weakscale_torch.py failed: "
+          f"{res.stderr[-2000:]}")
+    with open(out) as f:
+        rep = json.load(f)
+    check(rep["points"]["1"]["shared_card"] is False
+          and rep["points"]["2"]["shared_card"] is True,
+          "weakscale_torch.py flagged its points wrongly")
+    launches = {}
+    for n, pt in rep["points"].items():
+        lc = pt["launches"]
+        check(lc["matvec"]["packed_dot"] >= 1
+              and lc["matvec"]["packed_tdot"] >= 1
+              and lc["statrows"]["packed_dot"] >= 1,
+              f"N={n}: K1/K2 did not launch in (b)/(e): {lc}")
+        launches[n] = {k: lc["matvec"][k] + lc["statrows"][k]
+                       for k in lc["matvec"]}
+    return {"launches": launches, "report": rep}
+
+
 def run(args) -> None:
     import torch
 
@@ -3134,6 +3336,12 @@ def run(args) -> None:
                             main["cohort"], args.seed)
         fpr_mf = fpr_matfree_phase(torch, ep, packed, mf_parity,
                                    zmat["cohort"])
+        # phases 24, 25 and 27 need none of phases 15-23 and run while the
+        # CPU legs finish, in the card's idle wait for them
+        debug_fit = debug_fit_phase(torch, packed, tmp, mf_parity, am_card,
+                                    dev)
+        vignette = vignette_phase(tmp)
+        weak = weakscale_phase(tmp)
         legs_phase(legs, {"am": am_card, "zmat": zmat["card"],
                           "am_multi": multi["card"],
                           "fpr4am": fpr_mf["card"]},
@@ -3158,8 +3366,10 @@ def run(args) -> None:
                                       load_script("cohort_run_torch"), tmp,
                                       card, dev)
             benches = bench_phase(torch, cohort, early, card)
+        # the ingest bench alone on the host, so that its rate is its own
+        ingest = ingest_bench_phase(tmp, card)
 
-    phase("24. kernels")
+    phase("28. kernels")
     by_path = {"am_matfree": main["launches"],
                "summary_am_matfree": flow["summary_matfree_launches"],
                "am_matfree_zmat": zmat["launches"],
@@ -3172,6 +3382,9 @@ def run(args) -> None:
     by_path["biobank_n_axis"] = n_axis["launches"]
     by_path["biobank_p_axis"] = p_axis["launches"]
     by_path["cohort_run_matfree"] = cohort["launches"]
+    by_path["debug_fit_matfree"] = debug_fit["launches"]
+    for n, counts in weak["launches"].items():
+        by_path[f"weakscale_N{n}_rank0"] = counts
     w1 = world1["warm"]
     print(f"world 1 (NCCL): am(engine='sharded') {world1['wall_s']:.1f} s, "
           f"mmt_psum {w1['mmt_psum']['ms']:.3f} ms, "
@@ -3231,6 +3444,15 @@ def run(args) -> None:
           f"selected {cohort['selected']}; bench_cuda.py --quick: "
           + ", ".join(f"{c} {b['value']} {b['unit']} ({b['wall_s']:.1f} s)"
                       for c, b in benches.items()))
+    wpts = weak["report"]["points"]
+    print(f"debug_resume_fit_torch at the parity cohort: profile gap "
+          f"{debug_fit['profile_gap']:.2e}, {debug_fit['wall_s']:.1f} s; "
+          f"vignette {vignette['selected']} ({vignette['wall_s']:.1f} s); "
+          "ingest "
+          + ", ".join(f"{k} {v['mb_per_s']} MB/s" for k, v in ingest.items())
+          + "; weakscale (N = 2 shares the card: no scaling) "
+          + ", ".join(f"N={n} {ph} {wpts[n][ph]['t_s_median']:.4f} s"
+                      for n in wpts for ph in ("matvec", "statrows")))
     entries = []
     head = 64
     for name, meta in KERNELS.items():

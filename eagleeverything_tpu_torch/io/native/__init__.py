@@ -28,24 +28,61 @@ _lib: Optional[ctypes.CDLL] = None
 _lib_failed = False
 
 
-def lib_path() -> Path:
+# the ThreadSanitizer build of the same source (tsan_check.py runs it)
+_TSAN_FLAGS = ("-O1", "-g", "-std=c++17", "-fPIC", "-pthread",
+               "-fsanitize=thread", "-shared")
+
+
+def lib_path(flags: tuple[str, ...] = _FLAGS, stem: str = "libeagleingest"
+             ) -> Path:
     """Where the library of the current source is (or will be) built."""
     h = hashlib.sha256(_SRC.read_bytes())
-    h.update(" ".join(_FLAGS).encode())
-    return BUILD_DIR / f"libeagleingest_{h.hexdigest()[:12]}.so"
+    h.update(" ".join(flags).encode())
+    return BUILD_DIR / f"{stem}_{h.hexdigest()[:12]}.so"
 
 
-def _build(out: Path) -> bool:
+def _compile(out: Path, flags: tuple[str, ...]) -> None:
+    """g++ ``flags`` on the source into ``out``, through a name of this
+    process's own; raises on failure with the compiler's output."""
     tmp = out.with_suffix(f".tmp{os.getpid()}.so")
     try:
         out.parent.mkdir(parents=True, exist_ok=True)
-        subprocess.run(["g++", *_FLAGS, str(_SRC), "-o", str(tmp)],
+        subprocess.run(["g++", *flags, str(_SRC), "-o", str(tmp)],
                        check=True, capture_output=True, timeout=300)
         os.replace(tmp, out)
+    finally:
+        tmp.unlink(missing_ok=True)
+
+
+def _build(out: Path) -> bool:
+    try:
+        _compile(out, _FLAGS)
         return True
     except (OSError, subprocess.SubprocessError):
-        tmp.unlink(missing_ok=True)
         return False
+
+
+def build_tsan() -> Path:
+    """The ThreadSanitizer-instrumented library of the current source
+    (``-O1 -g -fsanitize=thread``), built into ``build/torch_native/`` if
+    it is not there; raises when g++ fails."""
+    out = lib_path(_TSAN_FLAGS, "libeagleingest_tsan")
+    if not out.exists():
+        _compile(out, _TSAN_FLAGS)
+    return out
+
+
+def tsan_runtime() -> Optional[str]:
+    """g++'s ``libtsan.so``, which must be preloaded into an uninstrumented
+    interpreter that loads the instrumented library; None when g++ has
+    none."""
+    try:
+        out = subprocess.run(["g++", "-print-file-name=libtsan.so"],
+                             check=True, capture_output=True, text=True,
+                             timeout=60).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return None
+    return out if os.path.isabs(out) and os.path.exists(out) else None
 
 
 def get_lib() -> Optional[ctypes.CDLL]:

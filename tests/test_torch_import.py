@@ -54,12 +54,32 @@ _FORBIDDEN = re.compile(
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")]
     + ["chip_smoke.py", "scripts/biobank_axes_torch.py", "bench_cuda.py",
-       "scripts/cohort_run_torch.py"]))
+       "scripts/cohort_run_torch.py", "scripts/debug_resume_fit_torch.py",
+       "scripts/ingest_bench_torch.py", "scripts/weakscale_torch.py",
+       "examples/python_api_torch.py"]))
 def test_port_sources_import_no_jax(path):
     src = (ROOT / path).read_text()
     assert not _FORBIDDEN.search(src), path
     assert "eagleeverything_tpu." not in src.replace(
         "eagleeverything_tpu_torch.", ""), path
+
+
+@pytest.mark.parametrize("path", [
+    "scripts/debug_resume_fit_torch.py", "scripts/ingest_bench_torch.py",
+    "scripts/weakscale_torch.py", "examples/python_api_torch.py"])
+def test_port_scripts_start_with_jax_blocked(path):
+    """Each of the port's scripts parses its command line (``--help``) in
+    a process where ``import jax`` fails."""
+    code = (
+        "import runpy, sys\n"
+        "sys.modules['jax'] = None\n"
+        f"sys.argv = [{path!r}, '--help']\n"
+        f"runpy.run_path({path!r}, run_name='__main__')\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "usage:" in res.stdout
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):
