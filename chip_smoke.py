@@ -26,7 +26,8 @@ Phases, each fatal when its check fails:
 4b. the kernels at BASELINE config 4's axes (AXIS_SHAPES: K1, K2 and K3 at
    500 000 × 32 768, K1 at 2 048 × 5 000 000), each timed beside its bound
    and ``torch.matmul`` on the f32 W a row block at a time (LIB_BLOCKS,
-   the blocks' times summed), bit for bit against itself, and against its
+   median of 3, the blocks' times summed), bit for bit against itself,
+   and against its
    plain version (one call, timed) and the library's blocks;
 5. a small parity check: ``am(engine="matfree")`` at n = 2000, p = 20 000
    on the card; its CPU leg, and those of phases 12-14, run in a process
@@ -74,13 +75,13 @@ Phases, each fatal when its check fails:
    matrix-free ``summary_am``;
 13. ``am_multi`` on the matrix-free engine: parity at 2000 × 20 000 (the
    card leg; each trait against the single-trait matrix-free ``am()`` on
-   the card), then four traits on phase 6's cohort, three carrying a
+   the card), then four traits on phase 12's cohort, three carrying a
    disjoint pair of its planted QTL and one pure noise (each selection
    planted for its own trait, none for the noise), with the widths
    packed_dot launched at and its first launch at each width over one tile
    held against its plain version;
 14. ``fpr4am`` on the matrix-free engine: 20 permutations at 2000 × 20 000
-   (the card leg), then 20 permutations on phase 12's cohort (auto), timed
+   (the card leg), then 10 permutations on phase 12's cohort (auto), timed
    a permutation;
 15. the matrix-free parity cells, card against CPU: the same selections
    (candidates), extBIC (λ_crit) within rtol 1e-3;
@@ -147,8 +148,8 @@ Phases, each fatal when its check fails:
    bench.py's metric and unit, a value, no error; the cohort config read
    the store on every sweep and cohort-full launched packed_dot. Phase
    22's store is then deleted;
-Phases 24, 25 and 27 run after phase 14, while the CPU legs finish (the
-card would wait for them in phase 15); phase 26 runs after phase 23.
+Phases 24, 25, 27 and 29 run after phase 14, while the CPU legs finish
+(the card would wait for them in phase 15); phase 26 runs after phase 23.
 
 24. scripts/debug_resume_fit_torch.py --exact on phase 5's parity cohort:
    the REML profiles of [1] and [1, its first selection] on the
@@ -162,9 +163,20 @@ card would wait for them in phase 15); phase 26 runs after phase 23.
    process each): the same selections, extBIC within rtol 1e-6;
 26. scripts/ingest_bench_torch.py --gb 0.5 --format both: MB/s for each
    format through the native ingest;
-27. scripts/weakscale_torch.py --device cuda --quick --share-card: N = 1,
-   and N = 2 with both ranks on the one card (flagged shared_card, no
-   scaling measurement), K1/K2 launched in its phases (b) and (e);
+27. scripts/weakscale_torch.py --device cuda --quick --rounds 1
+   --share-card: N = 1, and N = 2 with both ranks on the one card (flagged
+   shared_card, no scaling measurement), K1/K2 launched in its phases (b)
+   and (e);
+29. the exact engine's eigendecomposition above cuSOLVER's limit
+   (engine_torch.DEVICE_EIGH_MAX_N): engine_torch.eigh_large forced at
+   n = 16 384 against torch.linalg.eigh on the same kernel made on the card
+   (eigenvalues within 1e-5 of d_max, residual and orthogonality within
+   10x of cuSOLVER's), torch.linalg.eigh at the limit (the yardstick) and
+   refusing one past it, eigh_large at n = 50 000 (within 10x of cuSOLVER's
+   residuals at the limit, the trace and Frobenius identities; its stages'
+   seconds and peak), then ``am(engine="auto")`` at n = matfree_min_n (32
+   768, the exact engine's largest) × 65 536 through eigh_large, every
+   selection planted;
 28. a summary line per kernel and the kernels' JSON line (launches by path,
    each read around exactly that call: the matrix-free am, summary_am,
    am with Zmat, am_multi, fpr4am, each rank of phase 17's matrix-free am,
@@ -236,6 +248,15 @@ N_AXIS_MAXIT = 6
 COHORT_P = 65536
 COHORT_BLOCK = 4096
 COHORT_MAXIT = 3
+# phase 29: the exact engine's eigendecomposition above cuSOLVER's limit
+# (engine_torch.DEVICE_EIGH_MAX_N): eigh_large forced at EIGH_CHECK_N
+# against torch.linalg.eigh on the same kernel, and alone at N; every kernel
+# is W·Wᵀ/n with W standard normal n × n made on the card. Then the exact
+# engine at auto's edge (n = matfree_min_n), which takes eigh_large, on a
+# cohort of AUTO_EDGE_P SNPs (phase 22's)
+EIGH_CHECK_N = 16384
+AUTO_EDGE_P = 65536
+AUTO_EDGE_MAXIT = 3
 # phase 23: bench.py's metric and unit of each config (bench.py:180, :426,
 # :561, :627, :677), which bench_cuda.py's lines must carry
 BENCH_LINES = {
@@ -846,7 +867,8 @@ def axis_timing_phase(torch, packed, dev, seed: int) -> dict:
           "n = 500 000, p = 32 768, r in (8, 16, 144); K1 at n = 2 048, "
           "p = 5 000 000, r in (8, 144) (CUDA events, median of 10; the "
           "plain versions one call; torch.matmul on the f32 W "
-          f"{LIB_BLOCKS} row blocks at a time, the blocks' times summed, "
+          f"{LIB_BLOCKS} row blocks at a time, median of 3, the blocks' "
+          "times summed, "
           "since the whole W is 65.5 / 41.0 GB)")
     out = {}
     for (n, p), names, widths in AXIS_SHAPES:
@@ -907,7 +929,7 @@ def axis_timing_phase(torch, packed, dev, seed: int) -> dict:
                        "kernel_matvec": lambda: torch.matmul(
                            W.T, torch.matmul(W, A))}
                 for name in names:
-                    l_out, l_ms = timed(torch, lib[name], 10, 1)
+                    l_out, l_ms = timed(torch, lib[name], 3, 1)
                     res[name][r]["library_ms"] += l_ms
                     if name == "packed_dot":
                         k1_err[r] = max(k1_err[r], (
@@ -1342,8 +1364,9 @@ def multi_phase(torch, ep, packed, tmp: str, parity_cohort, prep: dict,
                 main_cohort, seed: int) -> dict:
     """am_multi on the matrix-free engine (BASELINE config 5 at biobank n):
     the card leg of the parity cell at 2000 × 20 000, each trait held to
-    the single-trait matrix-free am() on the card, then four traits at the
-    main path's 50 000 × p (auto), with the widths packed_dot launched at."""
+    the single-trait matrix-free am() on the card, then four traits on
+    ``main_cohort`` (auto; phase 12's 50 000 × 65 536), with the widths
+    packed_dot launched at."""
     phase("13. am_multi on the matrix-free engine: parity at 2000 x 20 000 "
           "on cuda (against single-trait am; the cpu leg: phase 15), then "
           f"R = 4 traits at {main_cohort.n} x {main_cohort.p} "
@@ -1413,13 +1436,13 @@ def multi_phase(torch, ep, packed, tmp: str, parity_cohort, prep: dict,
 def fpr_matfree_phase(torch, ep, packed, parity_cohort,
                       zmat_cohort) -> dict:
     """fpr4am on the matrix-free engine: the card leg of the parity cell
-    (20 permutations at 2000 × 20 000), then 20 permutations (BASELINE's
+    (20 permutations at 2000 × 20 000), then 10 permutations (BASELINE's
     100 cut) at 50 000 × 65 536 (p cut from 262 144), which auto routes
     to it."""
-    reps = 20
+    reps, big_reps = 20, 10
     phase(f"14. fpr4am on the matrix-free engine: parity at 2000 x 20 000 "
           f"({reps} permutations, on cuda; the cpu leg: phase 15), then "
-          f"{reps} permutations at {zmat_cohort.n} x {zmat_cohort.p} "
+          f"{big_reps} permutations at {zmat_cohort.n} x {zmat_cohort.p} "
           "(engine='auto')")
     c = parity_cohort
     h = ep.GenoHandle(n=c.n, p=c.p, source="parity", store_dir=c.store_dir)
@@ -1436,18 +1459,19 @@ def fpr_matfree_phase(torch, ep, packed, parity_cohort,
     c = zmat_cohort
     h = ep.GenoHandle(n=c.n, p=c.p, source="zmat", store_dir=c.store_dir)
     out, wall, launches = run_counted(torch, packed, lambda: ep.fpr4am(
-        "y", h, {"y": c.y}, numreps=reps, seed=1))
+        "y", h, {"y": c.y}, numreps=big_reps, seed=1))
     crits = np.asarray(out["lambda_crits"])
-    print(f"fpr4am({reps} permutations, engine='auto'): {wall:.1f} s, "
-          f"{wall / reps:.2f} s a permutation; lambda* {out['lambda']:.4f}, "
+    print(f"fpr4am({big_reps} permutations, engine='auto'): {wall:.1f} s, "
+          f"{wall / big_reps:.2f} s a permutation; lambda* "
+          f"{out['lambda']:.4f}, "
           f"lambda_crit range [{crits.min():.3f}, {crits.max():.3f}]; "
           f"launches {launches}", flush=True)
     check(math.isfinite(out["lambda"]) and bool(np.all(np.isfinite(crits))),
           "non-finite lambda from the matrix-free fpr4am")
     for k in KERNELS:
         check(launches[k] >= 1, f"{k} was never launched by fpr4am")
-    return {"launches": launches, "wall_s": wall, "per_perm_s": wall / reps,
-            "card": card}
+    return {"launches": launches, "wall_s": wall,
+            "per_perm_s": wall / big_reps, "card": card}
 
 
 def free_port() -> int:
@@ -1853,11 +1877,12 @@ def exact_parity_phase(torch, ep, tmp: str, seed: int, dev) -> dict:
 
 def exact_scan_phase(torch, ep, packed, kernels, engine_torch, tmp: str,
                      title: str, n: int, p: int, maxit: int, seed: int,
-                     dev) -> dict:
+                     dev, extra: dict | None = None) -> dict:
     """``am(engine="auto")`` on a generated n × p cohort (8 planted QTL)
-    that auto routes to the exact engine, with the device ops counted and
-    timed, the packed-stack kernels' launch counts read around exactly that
-    call, and the eigenbasis it used kept for the caller's checks."""
+    that auto routes to the exact engine, with the device ops (and the
+    ``extra`` OpTimer targets) counted and timed, the packed-stack kernels'
+    launch counts read around exactly that call, and the eigenbasis it
+    used kept for the caller's checks."""
     from eagleeverything_tpu_torch.data.simulate import simulate_cohort
     phase(f"{title}: am(engine='auto') on a generated cohort of {n} x {p} "
           f"(seed {seed}, 8 planted QTL, maxit {maxit})")
@@ -1873,6 +1898,7 @@ def exact_scan_phase(torch, ep, packed, kernels, engine_torch, tmp: str,
                            store_dir=c.store_dir)
     targets = exact_op_targets(torch, kernels)
     targets["eigh_basis"] = (engine_torch, "eigh_basis", lambda a: (0, 0))
+    targets.update(extra or {})
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     packed.reset_launches()
@@ -3264,15 +3290,17 @@ def ingest_bench_phase(tmp: str, card: str) -> dict:
 
 
 def weakscale_phase(tmp: str) -> dict:
-    """Phase 27: scripts/weakscale_torch.py --device cuda --quick
-    --share-card: N = 1 on the card, N = 2 with both ranks on it over gloo
-    (flagged shared_card: no scaling measurement), each point's K1/K2
+    """Phase 27: scripts/weakscale_torch.py --device cuda --quick --rounds
+    1 --share-card: N = 1 on the card, N = 2 with both ranks on it over
+    gloo (flagged shared_card: no scaling measurement), each point's K1/K2
     launches in (b) and (e) counted on rank 0."""
-    phase("27. scripts/weakscale_torch.py --device cuda --quick --share-card")
+    phase("27. scripts/weakscale_torch.py --device cuda --quick --rounds 1 "
+          "--share-card")
     out = os.path.join(tmp, "weakscale.json")
     res = subprocess.run(
         [sys.executable, os.path.join(ROOT, "scripts", "weakscale_torch.py"),
-         "--device", "cuda", "--quick", "--share-card", "--out", out,
+         "--device", "cuda", "--quick", "--rounds", "1", "--share-card",
+         "--out", out,
          "--timeout", "240"], cwd=ROOT,
         env=dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="4"),
         capture_output=True, text=True, timeout=600)
@@ -3294,6 +3322,151 @@ def weakscale_phase(tmp: str) -> dict:
         launches[n] = {k: lc["matvec"][k] + lc["statrows"][k]
                        for k in lc["matvec"]}
     return {"launches": launches, "report": rep}
+
+
+def card_kernel(torch, n: int, seed: int, dev, block: int = 8192):
+    """K = W·Wᵀ/n on the card, W standard normal n × n drawn a column block
+    at a time from ``seed``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    K = torch.zeros((n, n), device=dev)
+    for c0 in range(0, n, block):
+        W = torch.randn((n, min(block, n - c0)), generator=g, device=dev)
+        K.addmm_(W, W.T, alpha=1.0 / n)
+        del W
+    return K
+
+
+def eigh_phase(torch, ep, packed, kernels, engine_torch, tmp: str,
+               seed: int, dev) -> dict:
+    """Phase 29: the exact engine's eigendecomposition above cuSOLVER's
+    limit. engine_torch.eigh_large (Householder tridiagonalisation, divide
+    and conquer with leaves for torch.linalg.eigh, compact-WY
+    back-transform; leaves as eigh_basis sets them) forced at EIGH_CHECK_N
+    against torch.linalg.eigh on the same kernel: the eigenvalues within
+    1e-5 of d_max, residual and orthogonality within 10x of cuSOLVER's.
+    torch.linalg.eigh at DEVICE_EIGH_MAX_N (its residuals, the yardstick
+    below) and refusing one past it. eigh_large at N: residual and
+    orthogonality within 10x of cuSOLVER's at the limit, |Σd − tr K|/tr K
+    ≤ 1e-5, |Σd² − ‖K‖²_F|/‖K‖²_F ≤ 1e-4, its stages' seconds and its peak
+    beside the kernel. Then ``am(engine="auto")`` at matfree_min_n, the
+    exact engine's largest n, which takes eigh_large once (counted by its
+    stage a, whose bytes are the trailing blocks read once a column):
+    every selection planted."""
+    lim = engine_torch.DEVICE_EIGH_MAX_N
+    leaf = min(lim, engine_torch.EIGH_LEAF_N)
+    edge = ep.EagleConfig().matfree_min_n
+    phase(f"29. the exact engine above cuSOLVER's limit (DEVICE_EIGH_MAX_N "
+          f"= {lim}): eigh_large (leaves of {leaf}) against "
+          f"torch.linalg.eigh at n = {EIGH_CHECK_N}, cuSOLVER at {lim} and "
+          f"{lim + 1}, eigh_large at n = {N}, then am(engine='auto') at "
+          f"{edge} x {AUTO_EDGE_P}")
+    out = {"limit": lim, "leaf": leaf}
+
+    def route(K) -> tuple[dict, object]:
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        stats = {}
+        t0 = time.perf_counter()
+        d, U = engine_torch.eigh_large(K.clone(), leaf, stats=stats)
+        torch.cuda.synchronize()
+        r = {"seconds": time.perf_counter() - t0, "stages": stats,
+             "peak_squares": (torch.cuda.max_memory_allocated() - base)
+             / (4.0 * K.shape[0] ** 2)}
+        r["residual"], r["orthogonality"] = engine_torch.eig_residuals(
+            K, d, U)
+        return r, d
+
+    def library(K) -> tuple[dict, object]:
+        t0 = time.perf_counter()
+        d, U = torch.linalg.eigh(K)
+        torch.cuda.synchronize()
+        r = {"seconds": time.perf_counter() - t0}
+        r["residual"], r["orthogonality"] = engine_torch.eig_residuals(
+            K, d, U)
+        return r, d
+
+    K = card_kernel(torch, EIGH_CHECK_N, seed, dev)
+    lib, d_lib = library(K)
+    mine, d = route(K)
+    del K
+    gap = float(torch.max(torch.abs(d - d_lib.double()))) / float(d[-1])
+    print(f"n = {EIGH_CHECK_N}: eigh_large {mine['seconds']:.2f} s "
+          f"(stages {mine['stages']}), residual {mine['residual']:.2e}, "
+          f"orthogonality {mine['orthogonality']:.2e}; torch.linalg.eigh "
+          f"{lib['seconds']:.2f} s, {lib['residual']:.2e}, "
+          f"{lib['orthogonality']:.2e}; eigenvalue gap {gap:.2e} of d_max",
+          flush=True)
+    check(gap <= 1e-5, f"eigh_large's eigenvalues differ from cuSOLVER's "
+          f"by {gap:.2e} of d_max")
+    for key in ("residual", "orthogonality"):
+        check(mine[key] <= 10 * lib[key], f"eigh_large's {key} "
+              f"{mine[key]:.2e} is over 10x cuSOLVER's {lib[key]:.2e}")
+    out["check"] = {"route": mine, "cusolver": lib, "gap": gap}
+    torch.cuda.empty_cache()
+
+    K = card_kernel(torch, lim, seed, dev)
+    at_lim, _ = library(K)
+    del K
+    torch.cuda.empty_cache()
+    past = torch.eye(lim + 1, device=dev)
+    try:
+        torch.linalg.eigh(past)
+        refused = ""
+    except torch.linalg.LinAlgError as e:
+        # the probe: one past the limit the library must refuse the kernel
+        refused = str(e).split(".")[0]
+    del past
+    print(f"torch.linalg.eigh at n = {lim}: {at_lim['seconds']:.2f} s, "
+          f"residual {at_lim['residual']:.2e}, orthogonality "
+          f"{at_lim['orthogonality']:.2e}; at {lim + 1}: {refused}",
+          flush=True)
+    check("cusolverDnXsyevd_bufferSize" in refused,
+          f"torch.linalg.eigh took n = {lim + 1}: DEVICE_EIGH_MAX_N is not "
+          "the card's limit")
+    out["cusolver_at_limit"] = at_lim
+    torch.cuda.empty_cache()
+
+    K = card_kernel(torch, N, seed, dev)
+    big, d = route(K)
+    tr = float(torch.sum(K.diagonal().double()))
+    fro2 = sum(float(torch.sum(K[r0:r0 + 8192].double() ** 2))
+               for r0 in range(0, N, 8192))
+    del K
+    big["trace_rel"] = abs(float(torch.sum(d)) - tr) / tr
+    big["frobenius_rel"] = abs(float(torch.sum(d * d)) - fro2) / fro2
+    print(f"n = {N}: eigh_large {big['seconds']:.1f} s (stages "
+          + ", ".join(f"{k} {v:.1f}" for k, v in big["stages"].items())
+          + f"), peak {big['peak_squares']:.2f} n² f32 beside the kernel, "
+          f"residual {big['residual']:.2e}, orthogonality "
+          f"{big['orthogonality']:.2e}, |Σd − tr K|/tr K "
+          f"{big['trace_rel']:.2e}, |Σd² − ‖K‖²|/‖K‖² "
+          f"{big['frobenius_rel']:.2e}; d in [{float(d[0]):.3g}, "
+          f"{float(d[-1]):.3g}]", flush=True)
+    for key in ("residual", "orthogonality"):
+        check(big[key] <= 10 * at_lim[key], f"eigh_large's {key} at n = {N}"
+              f" {big[key]:.2e} is over 10x cuSOLVER's at its limit "
+              f"{at_lim[key]:.2e}")
+    check(big["trace_rel"] <= 1e-5 and big["frobenius_rel"] <= 1e-4,
+          f"eigh_large at n = {N} misses the trace or Frobenius identity")
+    out["large"] = big
+    torch.cuda.empty_cache()
+
+    edge_run = exact_scan_phase(
+        torch, ep, packed, kernels, engine_torch, tmp,
+        "29b. the exact engine at auto's edge", edge, AUTO_EDGE_P,
+        AUTO_EDGE_MAXIT, seed, dev,
+        {"eigh_large stage a": (engine_torch, "_tridiagonalize",
+                                lambda a: (0, 4 * a[0].shape[0] ** 3 / 3))})
+    stage_a = edge_run["ops"]["eigh_large stage a"]
+    check(edge_run["basis"].host_f64 is None and stage_a["calls"] == 1,
+          f"am(engine='auto') at n = {edge} did not take eigh_large once")
+    print(f"eigh_large inside am(): {edge_run['phases']['eigh'][0]:.1f} s "
+          f"(its stage a {stage_a['ms'] / 1e3:.1f} s); am() "
+          f"{edge_run['wall_s']:.1f} s", flush=True)
+    out["auto_edge"] = {k: edge_run[k] for k in (
+        "wall_s", "peak_bytes", "indices", "extbic_path", "phases")}
+    out["auto_edge"]["eigh_large_s"] = edge_run["phases"]["eigh"][0]
+    return out
 
 
 def run(args) -> None:
@@ -3333,15 +3506,17 @@ def run(args) -> None:
         fpr_parity_phase(torch, ep, parity)
         zmat = zmat_phase(torch, ep, packed, tmp, prep, args.seed, dev)
         multi = multi_phase(torch, ep, packed, tmp, mf_parity, prep,
-                            main["cohort"], args.seed)
+                            zmat["cohort"], args.seed)
         fpr_mf = fpr_matfree_phase(torch, ep, packed, mf_parity,
                                    zmat["cohort"])
-        # phases 24, 25 and 27 need none of phases 15-23 and run while the
-        # CPU legs finish, in the card's idle wait for them
+        # phases 24, 25, 27 and 29 need none of phases 15-23 and run while
+        # the CPU legs finish, in the card's idle wait for them
         debug_fit = debug_fit_phase(torch, packed, tmp, mf_parity, am_card,
                                     dev)
         vignette = vignette_phase(tmp)
         weak = weakscale_phase(tmp)
+        eigh = eigh_phase(torch, ep, packed, kernels, engine_torch, tmp,
+                          args.seed, dev)
         legs_phase(legs, {"am": am_card, "zmat": zmat["card"],
                           "am_multi": multi["card"],
                           "fpr4am": fpr_mf["card"]},
@@ -3453,6 +3628,17 @@ def run(args) -> None:
           + "; weakscale (N = 2 shares the card: no scaling) "
           + ", ".join(f"N={n} {ph} {wpts[n][ph]['t_s_median']:.4f} s"
                       for n in wpts for ph in ("matvec", "statrows")))
+    big, lim = eigh["large"], eigh["cusolver_at_limit"]
+    print(f"eigh_large ({card}): n = {N} {big['seconds']:.1f} s (stages "
+          + ", ".join(f"{k} {v:.1f}" for k, v in big["stages"].items())
+          + f"), peak {big['peak_squares']:.2f} n², residual "
+          f"{big['residual']:.2e} / orthogonality {big['orthogonality']:.2e}"
+          f" against cuSOLVER's {lim['residual']:.2e} / "
+          f"{lim['orthogonality']:.2e} at n = {eigh['limit']} "
+          f"({lim['seconds']:.1f} s); am(engine='auto') at auto's edge "
+          f"{eigh['auto_edge']['wall_s']:.1f} s (eigh_large "
+          f"{eigh['auto_edge']['eigh_large_s']:.1f} s), selected "
+          f"{eigh['auto_edge']['indices']}")
     entries = []
     head = 64
     for name, meta in KERNELS.items():

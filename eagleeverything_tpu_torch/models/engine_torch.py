@@ -40,6 +40,7 @@ from the source on every pass, its int8 rows are packed on the device.
 from __future__ import annotations
 
 import hashlib
+import math
 import queue
 import threading
 import time
@@ -269,20 +270,427 @@ class EigenBasis:
         return self._U_host
 
 
+# The largest n whose n × n f32 kernel torch.linalg.eigh decomposes on the
+# card. Above it cuSOLVER's workspace query, cusolverDnXsyevd_bufferSize,
+# returns CUSOLVER_STATUS_INVALID_VALUE (f32 and f64 alike), the error
+# torch raises at n = 50 000. Bisected on an NVIDIA H100 80GB HBM3 (torch
+# 2.11, CUDA 12.8) by scripts/eigh_limit_torch.py: the query over every n
+# (26 733 works, asking 11.45 GB; 26 734 fails), then torch.linalg.eigh at
+# 26 733 (8.9 s) and at 26 734, 32 767, 32 768, 40 000 and 46 340 (each
+# refused).
+DEVICE_EIGH_MAX_N = 26733
+# the largest tridiagonal block eigh_large hands torch.linalg.eigh; bigger
+# ones are split and merged. Measured at n = 50 000 on the H100 (the same
+# script, --leaves): the divide and conquer and its last product take
+# 15.2 / 15.3 / 16.0 / 23.3 s with leaves of 2 048 / 4 096 / 8 192 / 26 733
+EIGH_LEAF_N = 4096
+# columns of a Householder panel (stage a) and reflectors of a compact-WY
+# block (stage c) in eigh_large
+EIGH_PANEL = 128
+# f64 elements of one block of the merge's secular work (roots × poles)
+_SECULAR_BLOCK = 1 << 25
+# the peak of the eigendecomposition above host_eigh_max_n on the device,
+# in n × n f32 squares with K and U counted, measured on an NVIDIA H100 by
+# scripts/eigh_limit_torch.py: torch.linalg.eigh 6.0 at n = 16 384 to
+# 26 733 (cuSOLVER's workspace alone is 4 squares); eigh_large 2.5 at
+# n = 50 000 (K, the merged factor and the halves' eigenvectors) and 3.0
+# at 16 384, where its secular blocks weigh more beside the squares
+EIGH_SQUARES_LIBRARY = 6
+EIGH_SQUARES_ROUTE = 2.5
+
+
 def eigh_basis(K: np.ndarray, config: EagleConfig,
                device) -> EigenBasis:
     """Eigendecomposition of the normalized kernel: host f64 LAPACK up to
-    ``config.host_eigh_max_n``, f32 ``torch.linalg.eigh`` on ``device``
-    above it (U then never reaches the host). Eigenvalues are clipped at
-    0 (K is PSD)."""
+    ``config.host_eigh_max_n``; above it f32 on ``device`` (U then never
+    reaches the host): ``torch.linalg.eigh`` up to DEVICE_EIGH_MAX_N,
+    :func:`eigh_large` above it. Eigenvalues are clipped at 0 (K is
+    PSD)."""
     n = K.shape[0]
     if n <= config.host_eigh_max_n:
         d, U = np.linalg.eigh(K)
         return EigenBasis(np.maximum(d, 0.0), U, None, device)
-    d_dev, U_dev = torch.linalg.eigh(
-        torch.as_tensor(K, dtype=torch.float32, device=device))
+    if n <= DEVICE_EIGH_MAX_N:
+        d_dev, U_dev = torch.linalg.eigh(
+            torch.as_tensor(K, dtype=torch.float32, device=device))
+    else:
+        d_dev, U_dev = eigh_large(
+            torch.as_tensor(K, dtype=torch.float32, device=device),
+            min(DEVICE_EIGH_MAX_N, EIGH_LEAF_N))
     d = np.maximum(d_dev.cpu().numpy().astype(np.float64), 0.0)
     return EigenBasis(d, None, U_dev, device)
+
+
+def eigh_reserve(n: int, config: EagleConfig) -> int:
+    """Device bytes the exact engine holds while it decomposes K: U alone
+    when the host decomposes it (it reaches the device by
+    ``set_eigenbasis``), else the measured peak of the route eigh_basis
+    takes at n; eigh_large's also counts four f64 blocks of its secular
+    work."""
+    square = 4 * n * n
+    if n <= config.host_eigh_max_n:
+        return square
+    if n <= DEVICE_EIGH_MAX_N:
+        return EIGH_SQUARES_LIBRARY * square
+    return int(EIGH_SQUARES_ROUTE * square + 4 * 8 * _SECULAR_BLOCK)
+
+
+def _tridiagonalize(A: torch.Tensor, nb: int
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Reduce the symmetric A (both triangles stored) to tridiagonal form
+    A = Q·T·Qᵀ in place by blocked Householder (LAPACK's sytrd with latrd):
+    a panel of ``nb`` columns at a time, each column one product with the
+    trailing block (read as the block stood before the panel, its update
+    applied to the vector), then the trailing block's rank-2·nb update.
+    Reflector j, H_j = I − τ_j·v·vᵀ with v[0] = 1, is stored in row j right
+    of the diagonal, A[j, j+1:] (column j by symmetry, which no later step
+    reads), and A's diagonal becomes T's. A column with nothing left to
+    annihilate but a nonzero subdiagonal gets τ = 2 (a sign flip, still
+    orthogonal), one that is all zero τ = 0.
+
+    Every column of a panel runs the same device ops on vectors of the
+    panel's length, the column index a device scalar: on CUDA the first
+    column runs as it comes and the others replay it as one CUDA graph, so
+    that the host issues one launch a column, not some thirty. Returns the
+    diagonal d, the off-diagonal e and τ, on A's device; nothing is read
+    back to the host."""
+    n, dev, dt = A.shape[0], A.device, A.dtype
+    e = torch.empty(max(n - 1, 0), dtype=dt, device=dev)
+    tau = torch.zeros(max(n - 1, 0), dtype=dt, device=dev)
+    if dev.type == "cuda":
+        # one side stream for every panel's capture (torch.cuda.graph's own
+        # context would also collect garbage and empty the allocator's
+        # cache at each panel); each graph's memory pool goes with it
+        side = torch.cuda.Stream(dev)
+    for j0 in range(0, n - 1, nb):
+        jb = min(nb, n - 1 - j0)
+        step, VW = _panel_step(A, j0, jb, e, tau)
+        if dev.type == "cuda":
+            main = torch.cuda.current_stream(dev)
+            side.wait_stream(main)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.stream(side):
+                step()
+                graph.capture_begin()
+                step()
+                graph.capture_end()
+            main.wait_stream(side)
+            for _ in range(jb - 1):
+                graph.replay()
+            del graph
+        else:
+            for _ in range(jb):
+                step()
+        V, W = VW[:, 0, jb:], VW[:, 1, jb:]
+        trail = A[j0 + jb:, j0 + jb:]
+        trail.addmm_(V.T, W, alpha=-1)
+        trail.addmm_(W.T, V, alpha=-1)
+    return A.diagonal().clone(), e, tau
+
+
+def _panel_step(A: torch.Tensor, j0: int, jb: int, e: torch.Tensor,
+                tau: torch.Tensor):
+    """One column of the panel of ``jb`` columns at ``j0``, as a function
+    of no arguments over fixed tensors (so that CUDA can replay it as a
+    graph): column j = j0 + i, i the device counter it advances. Positions
+    are local to rows j0:; the panel's reflectors v_k and their images w_k
+    are kept side by side in VW (rows v_0, w_0, v_1, w_1, ...; zero until
+    filled), so that k ≥ i add nothing. Returns (step, VW)."""
+    n, dev, dt = A.shape[0], A.device, A.dtype
+    m = n - j0
+    rows = A[j0:j0 + jb, j0:]        # the panel's rows
+    block = A[j0:, j0:]              # its rows ≤ i hold reflectors: masked
+    VW = torch.zeros((jb, 2, m), dtype=dt, device=dev)
+    P = VW.view(2 * jb, m)
+    e_p, tau_p = e[j0:j0 + jb], tau[j0:j0 + jb]
+    pos = torch.arange(m, device=dev)
+    i = torch.zeros(1, dtype=torch.long, device=dev)
+
+    def swap(c: torch.Tensor) -> torch.Tensor:
+        """[a_0, b_0, a_1, b_1, ...] → [b_0, a_0, b_1, a_1, ...]."""
+        return c.view(jb, 2).flip(1).reshape(2 * jb)
+
+    def step() -> None:
+        # column j as the panel's updates leave it: x −= Σ_k v_k·w_k[i] +
+        # w_k·v_k[i] (row j by symmetry; positions < i are not used)
+        x = torch.addmv(rows.index_select(0, i).view(m), P.T,
+                        swap(VW.index_select(2, i).view(2 * jb)), alpha=-1)
+        below = pos > i
+        alpha = x.index_select(0, i + 1)
+        beta = torch.copysign(torch.linalg.vector_norm(x * below),
+                              alpha).neg_()
+        live = beta != 0
+        t = torch.where(live, 1 - alpha / beta, 0.0)
+        v = (x * below) * torch.where(live, 1 / (alpha - beta), 0.0)
+        v = v.index_fill(0, i + 1, 1.0)
+        # row j keeps the updated diagonal and, right of it, v
+        rows.index_copy_(0, i, (v + (pos == i) * x).view(1, m))
+        # w = τ·(A·v − Σ_k v_k·(w_k·v) + w_k·(v_k·v)), then w −= τ/2·(w·v)·v
+        w = torch.addmv(torch.mv(block, v), P.T, swap(P @ v), alpha=-1)
+        w = w * below * t
+        w = w - (0.5 * t * torch.dot(w, v)) * v
+        VW.index_copy_(0, i, torch.stack([v, w]).view(1, 2, m))
+        e_p.index_copy_(0, i, beta)
+        tau_p.index_copy_(0, i, t)
+        i.add_(1)
+
+    return step, VW
+
+
+def _apply_reflectors(A: torch.Tensor, tau: torch.Tensor, B: torch.Tensor,
+                      nb: int) -> None:
+    """B ← Q·B in place for the Q of :func:`_tridiagonalize` (reflectors
+    in A's rows), ``nb`` reflectors at a time in compact-WY form,
+    H_j0···H_j1−1 = I − Vᵀ·T·V, the last block first. T comes from its
+    inverse, striu(V·Vᵀ) + diag(1/τ); a reflector with τ = 0 (the identity)
+    has its row zeroed."""
+    n = A.shape[0]
+    for j0 in reversed(range(0, n - 1, nb)):
+        j1 = min(j0 + nb, n - 1)
+        t = tau[j0:j1]
+        live = t != 0
+        V = torch.triu(A[j0:j1, j0 + 1:]) * live[:, None]
+        T_inv = torch.triu(V @ V.T, diagonal=1) + torch.diag(
+            torch.where(live, 1.0 / t, torch.ones_like(t)))
+        T = torch.linalg.solve_triangular(
+            T_inv, torch.eye(j1 - j0, dtype=A.dtype, device=A.device),
+            upper=True)
+        Bs = B[j0 + 1:]
+        Bs.addmm_(V.T, T @ (V @ Bs), alpha=-1)
+
+
+def _secular_roots(dk: torch.Tensor, z2: torch.Tensor, rho: float
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The roots of 1 + ρ·Σ z_j²/(d_j − λ) (d strictly increasing, z ≠ 0,
+    ρ > 0), one in each (d_i, d_i+1) and the last in (d_K, d_K + ρ·Σz²),
+    as origin + offset: each root's origin is the nearer of its two poles
+    (the sign of the function at the interval's middle says which), and
+    the offset τ is bisected in the differences d_j − origin, so that
+    d_j − λ = (d_j − origin) − τ keeps its relative accuracy near the
+    poles. 100 halvings resolve an offset far below its interval's f64
+    resolution, also for a root near a pole with a tiny z."""
+    K = dk.shape[0]
+    o = torch.empty_like(dk)
+    tau = torch.empty_like(dk)
+    top = rho * float(torch.sum(z2))
+    rows = max(1, _SECULAR_BLOCK // K)
+    for r0 in range(0, K, rows):
+        i = torch.arange(r0, min(K, r0 + rows), device=dk.device)
+        last = i == K - 1
+        nxt = dk[torch.clamp(i + 1, max=K - 1)]
+        half = torch.where(last, torch.full_like(nxt, top),
+                           (nxt - dk[i]) / 2)
+        delta = dk[None, :] - dk[i][:, None]
+        g = 1 + rho * torch.sum(z2 / (delta - half[:, None]), dim=1)
+        lower = last | (g > 0)
+        oi = torch.where(lower, dk[i], nxt)
+        lo = torch.where(lower, torch.zeros_like(half), -half)
+        hi = torch.where(lower, half, torch.zeros_like(half))
+        delta = dk[None, :] - oi[:, None]
+        for _ in range(100):
+            mid = (lo + hi) / 2
+            g = 1 + rho * torch.sum(z2 / (delta - mid[:, None]), dim=1)
+            pos = g > 0
+            hi = torch.where(pos, mid, hi)
+            lo = torch.where(pos, lo, mid)
+        o[i], tau[i] = oi, (lo + hi) / 2
+    return o, tau
+
+
+def _secular_vectors(dk: torch.Tensor, zk: torch.Tensor, rho: float,
+                     o: torch.Tensor, tau: torch.Tensor):
+    """The merge's ẑ by Gu and Eisenstat's formula from the computed roots
+    λ_i = o_i + τ_i, ẑ_k² = Π_i (λ_i − d_k) / (ρ·Π_j≠k (d_j − d_k)), each
+    root paired with a pole so that every ratio lies in (0, 1]; the
+    eigenvectors ẑ_j/(d_j − λ_i) are then orthogonal to working accuracy
+    whatever the roots' own error. Returns a function of root indices
+    giving those (K, c) unit columns."""
+    K = dk.shape[0]
+    logz2 = torch.empty_like(dk)
+    rows = max(1, _SECULAR_BLOCK // K)
+    i = torch.arange(K - 1, device=dk.device)
+    for k0 in range(0, K, rows):
+        k = torch.arange(k0, min(K, k0 + rows), device=dk.device)
+        diff = (o[None, :] - dk[k][:, None]) + tau[None, :]   # λ_i − d_k
+        den = torch.where(i[None, :] >= k[:, None], dk[None, 1:],
+                          dk[None, :-1]) - dk[k][:, None]
+        logz2[k] = (torch.log(diff[:, -1]) - math.log(rho)
+                    + torch.sum(torch.log(diff[:, :-1] / den), dim=1))
+    zhat = torch.copysign(torch.exp(logz2 / 2), zk)
+
+    def columns(r: torch.Tensor) -> torch.Tensor:
+        Y = zhat[:, None] / ((dk[:, None] - o[r][None, :]) - tau[r][None, :])
+        return Y / torch.linalg.vector_norm(Y, dim=0, keepdim=True)
+
+    return columns
+
+
+def _tridiag_eigh(d: np.ndarray, e: np.ndarray, leaf: int,
+                  device: torch.device, left=None
+                  ) -> tuple[np.ndarray, torch.Tensor]:
+    """Eigenpairs of the symmetric tridiagonal T (diagonal d, off-diagonal
+    e; host f64) by Cuppen's divide and conquer: a block of at most
+    ``leaf`` rows goes to f32 ``torch.linalg.eigh`` whole; a larger one is
+    torn at its middle, T = diag(T1, T2) + ρ·u·uᵀ, both halves solved, and
+    merged through the rank-one update (LAPACK's laed2/laed3/laed4 in f64
+    on ``device``: deflation of small z and of near-equal poles by Givens
+    rotations, the secular roots, Gu–Eisenstat vectors). Returns the
+    ascending eigenvalues (host f64) and the f32 eigenvectors Q on
+    ``device``. ``left``, when given, is applied in place to the rows of
+    the last factor before the last product: Q = left(B)·Ŭ."""
+    n = d.shape[0]
+    if n <= leaf:
+        T = torch.zeros((n, n), dtype=torch.float32, device=device)
+        T.diagonal().copy_(torch.as_tensor(d))
+        if n > 1:
+            T.diagonal(1).copy_(torch.as_tensor(e))
+            T.diagonal(-1).copy_(torch.as_tensor(e))
+        lam, Q = torch.linalg.eigh(T)
+        del T
+        if left is not None:
+            left(Q)
+        return lam.double().cpu().numpy(), Q
+    m = n // 2
+    rho, sign = abs(e[m - 1]), (1.0 if e[m - 1] >= 0 else -1.0)
+    d1, d2 = d[:m].copy(), d[m:].copy()
+    d1[-1] -= rho
+    d2[0] -= rho
+    lam1, Q1 = _tridiag_eigh(d1, e[:m - 1], leaf, device)
+    lam2, Q2 = _tridiag_eigh(d2, e[m:], leaf, device)
+    # T = diag(T1, T2) + ρ·u·uᵀ with u = e_m + sign·e_m+1; in the halves'
+    # eigenbases the update's vector is z = [last row of Q1, sign·first row
+    # of Q2] (norm √2): scaled to norm 1, ρ doubles
+    z = np.concatenate([Q1[-1].double().cpu().numpy(),
+                        sign * Q2[0].double().cpu().numpy()]) / math.sqrt(2)
+    B = torch.zeros((n, n), dtype=torch.float32, device=device)
+    B[:m, :m] = Q1
+    del Q1
+    B[m:, m:] = Q2
+    del Q2
+    return _merge(np.concatenate([lam1, lam2]), z, 2.0 * rho, B, left)
+
+
+def _merge(D: np.ndarray, z: np.ndarray, rho: float, B: torch.Tensor,
+           left) -> tuple[np.ndarray, torch.Tensor]:
+    """Eigenpairs of B·(diag(D) + ρ·z·zᵀ)·Bᵀ (‖z‖ = 1, B the halves'
+    eigenvectors, rotated in place by the deflation): the eigenvalues
+    ascending (host f64) and B·Ŭ (f32)."""
+    n, device = D.shape[0], B.device
+    perm = np.argsort(D, kind="stable")
+    dd, zz = D[perm], z[perm]
+    eps = np.finfo(np.float64).eps
+    tol = 8.0 * eps * max(float(np.max(np.abs(dd))),
+                          rho * float(np.max(np.abs(zz))))
+    deflated = rho * np.abs(zz) <= tol
+    pj = -1
+    for j in np.flatnonzero(~deflated):
+        if pj >= 0:
+            r = math.hypot(zz[pj], zz[j])
+            c, s = zz[j] / r, -zz[pj] / r
+            if abs((dd[j] - dd[pj]) * c * s) <= tol:
+                # a Givens rotation of columns pj, j moves z_pj into z_j;
+                # pj leaves with the rotated diagonal
+                zz[j], zz[pj] = r, 0.0
+                a, b = int(perm[pj]), int(perm[j])
+                Bpj = B[:, a].clone()
+                B[:, a].mul_(c).add_(B[:, b], alpha=s)
+                B[:, b].mul_(c).sub_(Bpj, alpha=s)
+                dd[pj], dd[j] = (dd[pj] * c * c + dd[j] * s * s,
+                                 dd[pj] * s * s + dd[j] * c * c)
+                deflated[pj] = True
+        pj = j
+    keep = np.flatnonzero(~deflated)
+    lam = dd.copy()
+    if keep.size:
+        dk = torch.as_tensor(dd[keep], device=device)
+        zk = torch.as_tensor(zz[keep], device=device)
+        o, tau = _secular_roots(dk, zk * zk, rho)
+        lam[keep] = (o + tau).cpu().numpy()
+        columns = _secular_vectors(dk, zk, rho, o, tau)
+    # each eigenvalue's source: its secular root (≥ 0) or its deflated pole
+    root = np.full(n, -1)
+    root[keep] = np.arange(keep.size)
+    order = np.argsort(lam, kind="stable")
+    if left is not None:
+        left(B)
+    U = torch.empty((n, n), dtype=torch.float32, device=device)
+    rows_k = torch.as_tensor(perm[keep], device=device)
+    step = max(1, _SECULAR_BLOCK // max(keep.size, 1))
+    for c0 in range(0, n, step):
+        cols = order[c0:c0 + step]
+        Y = torch.zeros((n, cols.size), dtype=torch.float64, device=device)
+        r = root[cols]
+        at = np.flatnonzero(r >= 0)
+        if at.size:
+            Y[rows_k[:, None], torch.as_tensor(at, device=device)[None, :]] \
+                = columns(torch.as_tensor(r[at], device=device))
+        flat = np.flatnonzero(r < 0)
+        Y[torch.as_tensor(perm[cols[flat]], device=device),
+          torch.as_tensor(flat, device=device)] = 1.0
+        U[:, c0:c0 + cols.size] = B @ Y.float()
+    return lam[order], U
+
+
+def eigh_large(K: torch.Tensor, max_n: int, nb: int = EIGH_PANEL,
+               stats: Optional[dict] = None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(d, U) of the symmetric f32 K on its device, ascending like
+    ``torch.linalg.eigh``, with no library call on a block larger than
+    ``max_n``: (a) Householder tridiagonalisation in place
+    (:func:`_tridiagonalize`, panels of ``nb``), (b) the tridiagonal
+    problem by divide and conquer (:func:`_tridiag_eigh`, leaves of at most
+    ``max_n`` to ``torch.linalg.eigh``, merges in f64), (c) the reflectors
+    applied to the last merge's factor in compact-WY blocks
+    (:func:`_apply_reflectors`). K is overwritten, and released once (c)
+    has read it when the caller holds no other reference. Products run in
+    IEEE fp32. ``stats``, when given, receives each stage's seconds (the
+    device synchronised at their edges)."""
+    device = K.device
+    if device.type == "cuda":
+        _ieee_fp32()
+
+    mark = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        if stats is not None:
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            now = time.perf_counter()
+            stats[name] = now - mark[0]
+            mark[0] = now
+
+    d, e, tau = _tridiagonalize(K, nb)
+    held = [K]
+    del K
+    lap("tridiagonal_s")
+
+    def left(B: torch.Tensor) -> None:
+        lap("divide_conquer_s")
+        _apply_reflectors(held.pop(), tau, B, nb)
+        lap("back_transform_s")
+
+    lam, U = _tridiag_eigh(d.double().cpu().numpy(),
+                           e.double().cpu().numpy(), max_n, device, left)
+    lap("last_product_s")
+    return torch.as_tensor(lam, device=device), U
+
+
+def eig_residuals(K: torch.Tensor, d: torch.Tensor, U: torch.Tensor,
+                  block: int = 4096) -> tuple[float, float]:
+    """(‖KU − UΛ‖_F / ‖K‖_F, ‖UᵀU − I‖_F / √n) of an eigendecomposition,
+    in K's dtype on K's device, a column block of U at a time."""
+    n = K.shape[0]
+    dd = d.to(K.dtype)
+    rr = oo = 0.0
+    for c0 in range(0, n, block):
+        Ub = U[:, c0:c0 + block]
+        rr += float(torch.sum((K @ Ub - Ub * dd[c0:c0 + block]) ** 2))
+        G = U.T @ Ub
+        G[c0:c0 + Ub.shape[1]].diagonal().sub_(1.0)
+        oo += float(torch.sum(G * G))
+    kk = sum(float(torch.sum(K[r0:r0 + block].double() ** 2))
+             for r0 in range(0, n, block))
+    return math.sqrt(rr / kk), math.sqrt(oo / n)
 
 
 def _eigh_kernel(K: np.ndarray, config: EagleConfig,
@@ -505,9 +913,9 @@ def stack_reserve(n: int, p: int, config: EagleConfig, sms: int,
         128-row blocks an SM, at most 64);
     fixed, the exact engine (``stat_cols`` = 0)
       - one n×n f32 matrix: K while MMt accumulates, then the eigenbasis
-        U (``set_eigenbasis``); four above ``host_eigh_max_n``, where the
-        eigendecomposition runs on the device (K, U and the solver's
-        workspace of about two more);
+        U (``set_eigenbasis``); above ``host_eigh_max_n``, where the
+        eigendecomposition runs on the device, its measured peak
+        (:func:`eigh_reserve`: K, U and what the route needs beside them);
       - one tile's recoded W (compute_dtype), its image T (f32, or the
         Lp-form sweep's W·L) and the scorer's two tile-sized f32
         temporaries (T∘s and its square in ``score_from_T``, the square
@@ -537,9 +945,9 @@ def stack_reserve(n: int, p: int, config: EagleConfig, sms: int,
     fixed = p * (1 + RESULT_COLS) * 4
     int8_row = n + 48 * packed.words_per_row(n) if int8_rows else 0
     if not stat_cols:
-        square = 4 if n > config.host_eigh_max_n else 1
         unpack_rows = min(packed.unpack_chunk_rows(n), tile_snps)
-        fixed += (square * n * n * 4 + tile_snps * n * (itemsize + 3 * 4)
+        fixed += (eigh_reserve(n, config)
+                  + tile_snps * n * (itemsize + 3 * 4)
                   + unpack_rows * (96 * packed.words_per_row(n) + 5 * n))
         if cache_device:
             fixed += p * n * (itemsize + 4)

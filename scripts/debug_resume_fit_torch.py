@@ -23,22 +23,23 @@ basis (its final log-likelihood from an exact CG solve); the model plus J
 is also refit as the scan's accept test does it, δ-hinted at the model's
 δ̂. extBIC is reml_core.extbic at the cohort's p.
 
-``--exact`` profiles the same models exactly, from TiledScan.compute_K,
-by the route that n allows (``exact_route``):
+``--exact`` profiles the same models exactly, from TiledScan.compute_K
+(computed once), by each of ``--routes`` (default ``exact_route``'s):
 
   eigh      the exact engine's own REML: engine_torch.eigh_basis of the
-            normalised kernel (f32 torch.linalg.eigh on the card above
-            host_eigh_max_n, host f64 below), Uᵀ[X y] rotated in f64
-            column blocks, and reml_core's reml_loglik_diag /
-            reml_maximize_diag, as engine_torch.forward_select fits; it
-            reports ‖KU − UD‖/‖K‖ and ‖UᵀU − I‖/√n.
-  cholesky  above n = 46 340, where the card's eigh refuses the kernel
-            (its n² entries pass 2³¹; ROADMAP F6): numerics of this
-            script's own, not the package's. K + δI is factored in f64
-            on the card by a blocked Cholesky (CholeskyKernel) at each δ,
-            and bigscan._ll_from_solution and reml_maximize_matfree's δ
-            search run on its exact log|H| and solves. The tests hold it
-            to the eigh route.
+            normalised kernel (host f64 up to host_eigh_max_n; above it
+            f32 on the card, torch.linalg.eigh up to
+            engine_torch.DEVICE_EIGH_MAX_N and engine_torch.eigh_large
+            above it), Uᵀ[X y] rotated in f64 column blocks, and
+            reml_core's reml_loglik_diag / reml_maximize_diag, as
+            engine_torch.forward_select fits; it reports ‖KU − UD‖/‖K‖
+            and ‖UᵀU − I‖/√n. The route at every n.
+  cholesky  the f64 cross-check, numerics of this script's own, not the
+            package's: K + δI is factored in f64 on the card by a blocked
+            Cholesky (CholeskyKernel) at each δ, and
+            bigscan._ll_from_solution and reml_maximize_matfree's δ search
+            run on its exact log|H| and solves. The tests and smoke phase
+            24 hold it to the eigh route.
 
 The exact profile is on the matrix-free context's δ scale (the kernel
 over the same Hutchinson s0; the restricted likelihood does not depend on
@@ -57,7 +58,7 @@ cohort from scripts/cohort_run_torch.py --gen):
 
   python scripts/debug_resume_fit_torch.py [--dir DIR]
       [--selected 3175,3863,922,2366] [--add J] [--exact]
-      [--protocol default,tight] [--out FILE]
+      [--protocol default,tight] [--routes eigh,cholesky] [--out FILE]
 
 The result JSON goes to ``--out`` (default ``<dir>/f4_debug.json``).
 """
@@ -82,9 +83,6 @@ if REPO not in sys.path:
 SELECTED = [3175, 3863, 922, 2366]       # the JAX script's model
 GRID = np.exp(np.linspace(-6.0, 8.0, 25))
 TAIL = np.exp(np.arange(9.0, 17.0))       # past both δ searches' bound
-# the largest n whose kernel the card's eigh takes: cuSOLVER's syevd
-# refuses n² ≥ 2³¹ entries (50 000 fails, 16 384 works; not bisected)
-DEVICE_EIGH_MAX_N = 46340
 PROTOCOLS = {
     "default": None,                      # EagleConfig's matfree fields
     "tight": {"probes": 128, "lanczos_m": 80, "solve_m": 256,
@@ -238,10 +236,13 @@ def _rotate(basis, B: np.ndarray, device: torch.device,
     return out.cpu().numpy()
 
 
-def _eig_residuals(K: np.ndarray, basis, device: torch.device,
-                   block: int = 4096) -> tuple[float, float]:
+def _eig_residuals(K: np.ndarray, basis,
+                   device: torch.device) -> tuple[float, float]:
     """(‖KU − UD‖_F / ‖K‖_F, ‖UᵀU − I‖_F / √n) of the eigendecomposition,
-    in f64 on the host when U is there, else in f32 on the device."""
+    in f64 on the host when U is there, else in f32 on the device
+    (engine_torch.eig_residuals)."""
+    from eagleeverything_tpu_torch.models import engine_torch
+
     n = K.shape[0]
     d = basis.d
     U = basis.host_f64
@@ -249,19 +250,9 @@ def _eig_residuals(K: np.ndarray, basis, device: torch.device,
         r = np.linalg.norm(K @ U - U * d[None, :]) / np.linalg.norm(K)
         o = np.linalg.norm(U.T @ U - np.eye(n)) / math.sqrt(n)
         return float(r), float(o)
-    Ud = basis.device_basis()
-    Kd = torch.as_tensor(K, dtype=torch.float32, device=device)
-    dd = torch.as_tensor(d, dtype=torch.float32, device=device)
-    rr = oo = 0.0
-    for c0 in range(0, n, block):
-        Ub = Ud[:, c0:c0 + block]
-        rr += float(torch.sum((Kd @ Ub - Ub * dd[c0:c0 + block]) ** 2))
-        G = Ud.T @ Ub
-        G[c0:c0 + Ub.shape[1]] -= torch.eye(Ub.shape[1], device=device)
-        oo += float(torch.sum(G * G))
-    kk = float(torch.sum(Kd.double() ** 2))
-    del Kd
-    return math.sqrt(rr / kk), math.sqrt(oo / n)
+    return engine_torch.eig_residuals(
+        torch.as_tensor(K, dtype=torch.float32, device=device),
+        torch.as_tensor(d, device=device), basis.device_basis())
 
 
 class CholeskyKernel:
@@ -269,10 +260,10 @@ class CholeskyKernel:
     scale), factored H = L·Lᵀ in f64 on ``device`` by a blocked
     right-looking Cholesky: torch.linalg.cholesky on diagonal blocks of
     ``block`` rows, triangular solves for the panels and products for the
-    trailing update, so that no solver call sees more than block² entries
-    (cuSOLVER's syevd, and with it the exact engine's device eigh, refuses
-    the whole 50 000² kernel). The last factor is kept; log|H| and H⁻¹·B
-    are exact up to f64 rounding of K."""
+    trailing update, so that no solver call sees more than block² entries.
+    It is the f64 cross-check of the eigh route, which holds K in f32. The
+    last factor is kept; log|H| and H⁻¹·B are exact up to f64 rounding of
+    K."""
 
     def __init__(self, K_raw: np.ndarray, s0: float, device: torch.device,
                  block: int = 8192):
@@ -473,10 +464,11 @@ def _exact_cholesky(K_raw: np.ndarray, s0_mf: float, y, Xs, dev,
 
 
 def exact_route(n: int, device: torch.device) -> str:
-    """"eigh" (the exact engine's own REML) wherever eigh_basis takes the
-    n x n kernel, else "cholesky" (ROADMAP F6)."""
-    return "eigh" if device.type != "cuda" or n <= DEVICE_EIGH_MAX_N \
-        else "cholesky"
+    """"eigh", the exact engine's own REML, at every n and on every
+    device: eigh_basis decomposes every kernel the card holds
+    (engine_torch.eigh_large above the library's limit). "cholesky" runs
+    only when asked for."""
+    return "eigh"
 
 
 def limit_loglik(y: np.ndarray, X: np.ndarray) -> float:
@@ -489,24 +481,33 @@ def limit_loglik(y: np.ndarray, X: np.ndarray) -> float:
                                      0.0)[0]
 
 
+def compute_K(backend) -> tuple[np.ndarray, dict]:
+    """The raw kernel (TiledScan.compute_K), its seconds and the host's
+    free memory before it."""
+    out = {"host_free_gb_before_K": _host_free_gb()}
+    t0 = time.perf_counter()
+    K_raw = backend.compute_K()
+    if backend.device.type == "cuda":
+        torch.cuda.synchronize(backend.device)
+    out["compute_K_s"] = time.perf_counter() - t0
+    return K_raw, out
+
+
 def exact_profile(backend, y: np.ndarray, Xs: dict[str, np.ndarray],
                   s0_mf: float, config, route: str = "eigh",
-                  block: int = 8192) -> dict:
+                  block: int = 8192, kernel=None) -> dict:
     """The exact engine's profile, δ̂ and log-likelihood of each model, on
     the matrix-free δ scale (s0_mf), by ``route``: "eigh" (the exact
     engine's eigenbasis REML) or "cholesky" (exact log|H| and solves at
-    each δ, for kernels the device eigh refuses); each model also on the
-    tail grid, at δ → ∞, and its supremum over all of them."""
+    each δ in f64, its cross-check); each model also on the tail grid, at
+    δ → ∞, and its supremum over all of them. ``kernel``: compute_K's
+    result, to share one kernel between routes (else computed here)."""
     from eagleeverything_tpu_torch.models import reml_core
 
     n, p = y.shape[0], backend.src.p
     dev = backend.device
-    out = {"route": route, "host_free_gb_before_K": _host_free_gb()}
-    t0 = time.perf_counter()
-    K_raw = backend.compute_K()
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    out["compute_K_s"] = time.perf_counter() - t0
+    K_raw, out = kernel or compute_K(backend)
+    out = {"route": route, **out}
     s0_e = float(np.mean(np.diag(K_raw)))
     scale = s0_e / s0_mf
     out.update(s0_exact=s0_e, s0_matfree=s0_mf)
@@ -514,7 +515,7 @@ def exact_profile(backend, y: np.ndarray, Xs: dict[str, np.ndarray],
         res = _exact_eigh(K_raw, s0_e, scale, y, Xs, config, dev, out)
     else:
         res = _exact_cholesky(K_raw, s0_mf, y, Xs, dev, out, block)
-    del K_raw
+    del K_raw, kernel
     out["models"] = {}
     for name, (lls, delta, ll, extra) in res.items():
         rows = []
@@ -581,9 +582,10 @@ def run(dir: str, selected: list[int], add: int | None, exact: bool,
         save()
         if dev.type == "cuda":
             torch.cuda.empty_cache()
+    kernel = compute_K(backend) if exact and len(routes) > 1 else None
     for i, route in enumerate(routes if exact else ()):
         ex = exact_profile(backend, y, Xs, s0, crt._cohort_cfg("off"),
-                           route, block)
+                           route, block, kernel)
         logdet, ll_at = ex.pop("_logdet"), ex.pop("_ll_at")
         if i == 0:
             # the exact engine at each matrix-free δ̂: its log|H| beside
@@ -641,6 +643,9 @@ def main() -> None:
     ap.add_argument("--exact", action="store_true")
     ap.add_argument("--protocol", default="default",
                     help="comma-separated: default, tight")
+    ap.add_argument("--routes", default="",
+                    help="comma-separated exact routes: eigh, cholesky "
+                         "(default: exact_route's)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default="")
     args = ap.parse_args()
@@ -650,8 +655,12 @@ def main() -> None:
     for name in protocols:
         if name not in PROTOCOLS:
             raise SystemExit(f"unknown protocol {name!r}")
+    routes = tuple(s for s in args.routes.split(",") if s) or None
+    for route in routes or ():
+        if route not in ("eigh", "cholesky"):
+            raise SystemExit(f"unknown route {route!r}")
     run(args.dir, [int(s) for s in args.selected.split(",") if s],
-        args.add, args.exact, protocols, args.device, args.out)
+        args.add, args.exact, protocols, args.device, args.out, routes)
 
 
 if __name__ == "__main__":

@@ -119,6 +119,93 @@ def test_exact_uncached_passes_fit_their_reserve(cuda):
     assert peak <= fixed, (peak, fixed)
 
 
+def _card_kernel(n: int, seed: int, device) -> "torch.Tensor":
+    """W·Wᵀ/n on the card, W standard normal n × n from ``seed``."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    W = torch.randn((n, n), generator=g, device=device)
+    return W @ W.T / n
+
+
+def test_eigh_large_matches_cusolver(cuda):
+    """engine_torch.eigh_large at n = 4 096 with leaves of 1 024 (two merge
+    levels) against torch.linalg.eigh on the same kernel: eigenvalues
+    within 1e-5 of d_max, residual and orthogonality within 10x of
+    cuSOLVER's."""
+    engine_torch._ieee_fp32()
+    K = _card_kernel(4096, 1, cuda)
+    d_lib, U_lib = torch.linalg.eigh(K)
+    lib = engine_torch.eig_residuals(K, d_lib, U_lib)
+    d, U = engine_torch.eigh_large(K.clone(), 1024)
+    mine = engine_torch.eig_residuals(K, d, U)
+    assert U.device.type == "cuda" and U.dtype == torch.float32
+    gap = float(torch.max(torch.abs(d - d_lib.double()))) / float(d[-1])
+    assert gap <= 1e-5, gap
+    for got, ref in zip(mine, lib):
+        assert got <= 10 * ref, (mine, lib)
+
+
+@pytest.fixture(scope="module")
+def past_the_limit():
+    """eigh_basis of a kernel one past DEVICE_EIGH_MAX_N (so through
+    eigh_large, counted by its stage a: a wrapper of eigh_large itself
+    would hold K alive through the call) and torch.linalg.eigh of its
+    leading block at the limit, with the residuals of both and
+    eigh_basis's peak beside K."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    engine_torch._ieee_fp32()
+    n = engine_torch.DEVICE_EIGH_MAX_N + 1
+    Kd = _card_kernel(n, 2, dev)
+    lim = Kd[:n - 1, :n - 1].contiguous()
+    d_l, U_l = torch.linalg.eigh(lim)
+    lib = engine_torch.eig_residuals(lim, d_l, U_l)
+    del lim, d_l, U_l
+    K = Kd.double().cpu().numpy()
+    torch.cuda.empty_cache()
+    calls = []
+    stage_a = engine_torch._tridiagonalize
+    mp = pytest.MonkeyPatch()
+    mp.setattr(engine_torch, "_tridiagonalize",
+               lambda *a: calls.append(a[0].shape[0]) or stage_a(*a))
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        basis = engine_torch.eigh_basis(K, EagleConfig(), dev)
+        torch.cuda.synchronize()
+    finally:
+        mp.undo()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    mine = engine_torch.eig_residuals(
+        Kd, torch.as_tensor(basis.d, device=dev), basis.device_basis())
+    return {"n": n, "calls": calls, "lib": lib, "mine": mine, "peak": peak,
+            "basis": basis}
+
+
+def test_eigh_basis_past_the_limit(cuda, past_the_limit):
+    """At the first n above the bisected limit eigh_basis routes by n to
+    eigh_large (once), keeps U on the card, and reaches residual and
+    orthogonality within 10x of cuSOLVER's at the limit."""
+    r = past_the_limit
+    assert r["calls"] == [r["n"]]
+    assert r["basis"].host_f64 is None
+    assert np.all(np.diff(r["basis"].d) >= 0)
+    for got, ref in zip(r["mine"], r["lib"]):
+        assert got <= 10 * ref, (r["mine"], r["lib"])
+
+
+def test_eigh_large_peak_fits_the_reserve(cuda, past_the_limit):
+    """eigh_basis's peak beside the rest of the scan (K uploaded, the route
+    and U) stays within stack_reserve's exact-engine eigendecomposition
+    term (eigh_reserve: the route's measured squares and its secular
+    blocks)."""
+    r = past_the_limit
+    n = r["n"]
+    reserve = engine_torch.eigh_reserve(n, EagleConfig())
+    assert reserve > engine_torch.EIGH_SQUARES_ROUTE * 4 * n * n
+    assert r["peak"] <= reserve, (r["peak"] / (4 * n * n))
+
+
 @pytest.mark.parametrize("slots", [2, 3])
 def test_streamed_stack_on_card_matches_resident(cuda, monkeypatch, slots):
     """The copy ring on the card: the stack forced to stream from pinned

@@ -13,8 +13,8 @@ cohort byte for byte), the model 1 + [3175, 3863, 922] and that model plus
   MatfreeContext.logdet + _ll_from_solution over its TiledScan on the
   same store, probes and s0, rtol 1e-6;
 - the exact profile by a blocked f64 Cholesky of K + δI at each δ (the
-  route for kernels the device eigh refuses) equals the eigenbasis one,
-  rtol 1e-10, and the route is picked from n;
+  f64 cross-check of the eigenbasis route) equals the eigenbasis one,
+  rtol 1e-10, and the eigenbasis route is the default at every n;
 - the two engines' profiles agree within rtol 1e-3 away from the grid's
   two ends on each side, each matrix-free δ̂ is a maximiser of the exact
   profile within 0.05 log-likelihood units, and each engine's extBIC
@@ -164,14 +164,14 @@ def test_the_cholesky_route_is_the_eigenbasis_route(run):
 
 
 def test_exact_route_follows_n():
-    cuda, cpu = torch.device("cuda"), torch.device("cpu")
-    assert dbg.exact_route(dbg.DEVICE_EIGH_MAX_N, cuda) == "eigh"
-    assert dbg.exact_route(dbg.DEVICE_EIGH_MAX_N + 1, cuda) == "cholesky"
-    assert dbg.exact_route(50_000, cuda) == "cholesky"
-    assert dbg.exact_route(50_000, cpu) == "eigh"
-    # the largest n whose n² entries stay below 2³¹
-    assert dbg.DEVICE_EIGH_MAX_N ** 2 < 2 ** 31 <= (
-        dbg.DEVICE_EIGH_MAX_N + 1) ** 2
+    """The exact engine's own eigenbasis REML at every n, on either side of
+    the card's library limit (eigh_basis takes engine_torch.eigh_large
+    above it); the Cholesky route runs only when forced."""
+    from eagleeverything_tpu_torch.models import engine_torch
+    limit = engine_torch.DEVICE_EIGH_MAX_N
+    for dev in (torch.device("cuda"), torch.device("cpu")):
+        for n in (2000, limit, limit + 1, 50_000):
+            assert dbg.exact_route(n, dev) == "eigh"
 
 
 def test_the_two_engines_agree_away_from_the_grids_ends(run):

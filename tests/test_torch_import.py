@@ -55,8 +55,8 @@ _FORBIDDEN = re.compile(
     [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")]
     + ["chip_smoke.py", "scripts/biobank_axes_torch.py", "bench_cuda.py",
        "scripts/cohort_run_torch.py", "scripts/debug_resume_fit_torch.py",
-       "scripts/ingest_bench_torch.py", "scripts/weakscale_torch.py",
-       "examples/python_api_torch.py"]))
+       "scripts/eigh_limit_torch.py", "scripts/ingest_bench_torch.py",
+       "scripts/weakscale_torch.py", "examples/python_api_torch.py"]))
 def test_port_sources_import_no_jax(path):
     src = (ROOT / path).read_text()
     assert not _FORBIDDEN.search(src), path
@@ -65,8 +65,9 @@ def test_port_sources_import_no_jax(path):
 
 
 @pytest.mark.parametrize("path", [
-    "scripts/debug_resume_fit_torch.py", "scripts/ingest_bench_torch.py",
-    "scripts/weakscale_torch.py", "examples/python_api_torch.py"])
+    "scripts/debug_resume_fit_torch.py", "scripts/eigh_limit_torch.py",
+    "scripts/ingest_bench_torch.py", "scripts/weakscale_torch.py",
+    "examples/python_api_torch.py"])
 def test_port_scripts_start_with_jax_blocked(path):
     """Each of the port's scripts parses its command line (``--help``) in
     a process where ``import jax`` fails."""
