@@ -148,8 +148,9 @@ Phases, each fatal when its check fails:
    bench.py's metric and unit, a value, no error; the cohort config read
    the store on every sweep and cohort-full launched packed_dot. Phase
    22's store is then deleted;
-Phases 24, 25, 27 and 29 run after phase 14, while the CPU legs finish
-(the card would wait for them in phase 15); phase 26 runs after phase 23.
+Phases 24, 25, 27, 29 and 30 run after phase 14, while the CPU legs
+finish (the card would wait for them in phase 15); phase 26 runs after
+phase 23.
 
 24. scripts/debug_resume_fit_torch.py --exact on phase 5's parity cohort:
    the REML profiles of [1] and [1, its first selection] on the
@@ -177,12 +178,22 @@ Phases 24, 25, 27 and 29 run after phase 14, while the CPU legs finish
    seconds and peak), then ``am(engine="auto")`` at n = matfree_min_n (32
    768, the exact engine's largest) × 65 536 through eigh_large, every
    selection planted;
+30. ROADMAP F5's step: tests/test_torch_f5.py's cohort (96 × 180 224, the
+   first 128 SNPs polymorphic) generated on the card; the device Lanczos
+   of [1, six markers, y] on the card and on the CPU must zero β_1 of the
+   six marker columns alone (the breakdown guard), agree on T up to it
+   and hold exact zeros after it, with no negative raw Ritz value; the
+   REML profile over the card's bases within the f32 bound of the CPU's;
+   scripts/debug_resume_fit_torch.py --exact on the card must fire the
+   guard where the CPU record (docs/f5_bisect_torch/) does, its profile
+   gap and extBIC excess within 20% of the record's;
 28. a summary line per kernel and the kernels' JSON line (launches by path,
    each read around exactly that call: the matrix-free am, summary_am,
    am with Zmat, am_multi, fpr4am, each rank of phase 17's matrix-free am,
    phase 18's streamed matrix-free and exact am, phase 19's, the two
    axes of phases 20-21, phase 22's run, phase 23's cohort-full, phase
-   24's profile and rank 0 of each point of phase 27), then the last line
+   24's profile, rank 0 of each point of phase 27 and phase 30's
+   profile), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside a checkout, it exits non-zero with no result line.
@@ -257,6 +268,17 @@ COHORT_MAXIT = 3
 EIGH_CHECK_N = 16384
 AUTO_EDGE_P = 65536
 AUTO_EDGE_MAXIT = 3
+# phase 30: ROADMAP F5's step on tests/test_torch_f5.py's cohort (scripts/
+# cohort_run_torch.py's generator, only the first F5_POLY SNPs
+# polymorphic), its six marker columns beside the intercept and y, F5_M
+# device Lanczos steps; F5_RECORD is the debug script's run of the same
+# cohort on the CPU (the port's plain versions), F5_JAX the JAX package's
+# (tests/jax_matfree_profile.py) on it
+F5_N, F5_P, F5_POLY = 96, 180224, 128
+F5_MARKERS = [3, 17, 40, 77, 90, 120]
+F5_M = 16
+F5_RECORD = "docs/f5_bisect_torch/n96_p180224_poly128_cpu.json"
+F5_JAX = "docs/f5_bisect_torch/n96_p180224_poly128_jax_cpu.json"
 # phase 23: bench.py's metric and unit of each config (bench.py:180, :426,
 # :561, :627, :677), which bench_cuda.py's lines must carry
 BENCH_LINES = {
@@ -3469,6 +3491,121 @@ def eigh_phase(torch, ep, packed, kernels, engine_torch, tmp: str,
     return out
 
 
+def f5_phase(torch, packed, tmp: str, dev) -> dict:
+    """Phase 30: ROADMAP F5's step on the card. tests/test_torch_f5.py's
+    cohort is generated on the card and the device Lanczos of [1,
+    W_markers, y] runs on the card (K1/K2) and on the CPU (the plain
+    versions) with one s0: the breakdown guard zeroes β_1 of the six
+    marker columns and of neither the intercept nor y on both, T's
+    coefficients agree up to it (rtol 1e-4; atol 1e-6 of the largest α)
+    and are exact zeros after it, no raw Ritz value is negative; the REML
+    profile over the card's bases lies within max(1e-6, 8·ε·κ(δ)) of the
+    CPU's (the bound the test holds the port to the JAX package with).
+    Then scripts/debug_resume_fit_torch.py --exact (default protocol, the
+    launches counted) profiles [1, five markers] and it plus the sixth on
+    the card: the same guard steps as the CPU record F5_RECORD, and, as
+    ROADMAP F5 decided (A: the reference's algorithm, the card adding
+    nothing), the card's profile gap to the exact profile and its extBIC
+    excess over the exact supremum within 20% of the CPU's, or within the
+    same f32 bound where that is wider (at the grid's small end here)."""
+    from eagleeverything_tpu_torch.models import bigscan
+    phase(f"30. ROADMAP F5's step on the card: the device Lanczos's guard "
+          f"at {F5_N} x {F5_P} ({F5_POLY} polymorphic SNPs), card against "
+          "CPU and the CPU record")
+    crt = load_script("cohort_run_torch")
+    dbg = load_script("debug_resume_fit_torch")
+    d = os.path.join(tmp, "f5")
+    crt.generate(d, F5_N, F5_P, device=dev, poly=F5_POLY)
+    meta, y = crt._load(d)
+    where = {"cuda": dev, "cpu": torch.device("cpu")}
+    bs = {k: crt._backend(d, meta, "off", v) for k, v in where.items()}
+    X = dbg.models(bs["cpu"], F5_N, F5_MARKERS, None)["model"]
+    s0 = dbg.hutchinson_s0(bs["cpu"], F5_N)
+    B = np.column_stack([X, y])
+    r = B.shape[1]
+    sk = {k: bigscan.ShiftedKrylov(
+        None, B, F5_M, reorth=True,
+        device_lanczos=lambda Z, m, ro, b=b: b.device_lanczos(Z, m, ro, s0))
+        for k, b in bs.items()}
+    want = [-1] + [1] * len(F5_MARKERS) + [-1]
+    atol = 1e-6 * np.abs(sk["cpu"].alphas).max()
+    for k, v in sk.items():
+        print(f"{k}: guard steps {v.guard_step.tolist()}, ratios "
+              + ", ".join(f"{g:.3g}" for g in v.guard_ratio)
+              + f"; raw Ritz min {v.w_raw.min():.6g}, "
+              f"{int((v.w_raw < 0).sum())} below 0")
+        check(v.guard_step.tolist() == want,
+              f"{k}: the guard fired at {v.guard_step.tolist()}")
+        check(not (v.w_raw < 0).any(), f"{k}: a raw Ritz value below 0")
+    a, c = sk["cuda"], sk["cpu"]
+    for j, k in enumerate(want):
+        kept = slice(None) if k < 0 else slice(0, k + 1)
+        check(np.allclose(a.alphas[kept, j], c.alphas[kept, j], rtol=1e-4,
+                          atol=atol)
+              and np.allclose(a.betas[kept, j][: F5_M - 1],
+                              c.betas[kept, j][: F5_M - 1], rtol=1e-4,
+                              atol=atol),
+              f"column {j}: T's coefficients differ, card against cpu")
+        if k >= 0:
+            check(np.all(a.alphas[k + 1:, j] == 0.0)
+                  and np.all(a.betas[k:, j] == 0.0),
+                  f"column {j}: no exact zeros after the guard on the card")
+    lam = np.linalg.eigvalsh(bs["cpu"].compute_K() / s0)
+    eps = np.finfo(np.float32).eps / 2
+    worst = 0.0
+    for delta in dbg.GRID:
+        logdet = float(np.sum(np.log(lam + delta)))
+        got, want_ll = (bigscan._ll_from_solution(y, X, v.solve(delta),
+                                                  logdet)[0]
+                        for v in (a, c))
+        kappa = (lam[-1] + delta) / (lam[0] + delta)
+        worst = max(worst, abs(got - want_ll) / (
+            max(1e-6, 8 * eps * kappa) * abs(want_ll)))
+    print(f"profile over the guarded bases, card against cpu: at most "
+          f"{worst:.3f} of the f32 bound")
+    check(worst <= 1.0, "the card's profile leaves the f32 bound")
+    res, wall, launches = run_counted(torch, packed, lambda: dbg.run(
+        d, F5_MARKERS[:-1], F5_MARKERS[-1], True, ["default"], device=dev,
+        out=os.path.join(d, "f5_card.json")))
+    with open(os.path.join(ROOT, F5_RECORD)) as f:
+        rec = json.load(f)
+    ex = rec["exact"]
+    lo = ex["floor_matfree"]
+    hi = ex["d_max"] * ex["s0_exact"] / ex["s0_matfree"]
+
+    def f32_bound(delta: float, ll: float) -> float:
+        # what two f32 bases may move a log-likelihood at δ, as above
+        return 8 * eps * (hi + delta) / (lo + delta) * abs(ll)
+
+    for name, m in res["matfree"]["default"]["models"].items():
+        cm = rec["matfree"]["default"]["models"][name]
+        print(f"{name}: guard steps {m['guard_step']} (cpu "
+              f"{cm['guard_step']}), raw Ritz min {m['w_raw_min']:.6g} "
+              f"({m['n_negative']} below 0), weight below the floor "
+              f"{max(m['weight_below_floor']):.2e}; profile gap "
+              f"{m['profile_gap_max']:.3f} (cpu {cm['profile_gap_max']:.3f})"
+              f", extBIC excess {m['extbic_excess']:.3f} (cpu "
+              f"{cm['extbic_excess']:.3f}); δ̂ {m['delta_hat']:.4g} (cpu "
+              f"{cm['delta_hat']:.4g})")
+        check(m["guard_step"] == cm["guard_step"],
+              f"{name}: the guard fired elsewhere than on the cpu")
+        # within 20% of the record, or within what f32 lets two bases
+        # differ: at every trimmed grid point for the gap, twice the bound
+        # at δ̂ for the excess (extBIC is -2 LL + its penalty)
+        tol = {"profile_gap_max": max(
+                   f32_bound(r["delta"], r["ll"])
+                   for r in ex["models"][name]["profile"][2:-2]),
+               "extbic_excess": 2 * f32_bound(cm["delta_hat"],
+                                              cm["loglik"])}
+        for key, t in tol.items():
+            check(abs(m[key] - cm[key]) <= max(0.2 * abs(cm[key]), t),
+                  f"{name}: {key} {m[key]:.3f} against the cpu's "
+                  f"{cm[key]:.3f} (f32 bound {t:.3f})")
+    print(f"{wall:.1f} s; launches {launches}", flush=True)
+    shutil.rmtree(d, ignore_errors=True)
+    return {"launches": launches, "wall_s": wall, "bound_share": worst}
+
+
 def run(args) -> None:
     import torch
 
@@ -3509,14 +3646,15 @@ def run(args) -> None:
                             zmat["cohort"], args.seed)
         fpr_mf = fpr_matfree_phase(torch, ep, packed, mf_parity,
                                    zmat["cohort"])
-        # phases 24, 25, 27 and 29 need none of phases 15-23 and run while
-        # the CPU legs finish, in the card's idle wait for them
+        # phases 24, 25, 27, 29 and 30 need none of phases 15-23 and run
+        # while the CPU legs finish, in the card's idle wait for them
         debug_fit = debug_fit_phase(torch, packed, tmp, mf_parity, am_card,
                                     dev)
         vignette = vignette_phase(tmp)
         weak = weakscale_phase(tmp)
         eigh = eigh_phase(torch, ep, packed, kernels, engine_torch, tmp,
                           args.seed, dev)
+        f5 = f5_phase(torch, packed, tmp, dev)
         legs_phase(legs, {"am": am_card, "zmat": zmat["card"],
                           "am_multi": multi["card"],
                           "fpr4am": fpr_mf["card"]},
@@ -3558,6 +3696,7 @@ def run(args) -> None:
     by_path["biobank_p_axis"] = p_axis["launches"]
     by_path["cohort_run_matfree"] = cohort["launches"]
     by_path["debug_fit_matfree"] = debug_fit["launches"]
+    by_path["f5_profile_matfree"] = f5["launches"]
     for n, counts in weak["launches"].items():
         by_path[f"weakscale_N{n}_rank0"] = counts
     w1 = world1["warm"]

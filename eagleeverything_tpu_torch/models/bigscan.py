@@ -158,6 +158,35 @@ def _lanczos(matvec_h: Matvec, Z: np.ndarray, m: int, reorth: bool = False,
     return alphas, betas, z_norm, basis
 
 
+def guard_steps(betas: np.ndarray) -> np.ndarray:
+    """Each column's first Lanczos step whose β the breakdown guard set to
+    0 (``_lanczos``, ``engine_torch._lanczos_step``: a kept β is > 0, a
+    zeroed one exactly 0, and every step after it is 0 as well), or -1
+    where the guard never fired. ``betas`` (m-1, r) as the recurrence
+    returns them; the last step's β is never returned, so it cannot
+    show."""
+    hit = np.asarray(betas) == 0.0
+    if hit.shape[0] == 0:
+        return np.full(hit.shape[1], -1)
+    return np.where(hit.any(axis=0), np.argmax(hit, axis=0), -1)
+
+
+def guard_ratio_min(alphas: np.ndarray, betas: np.ndarray) -> np.ndarray:
+    """Each column's smallest β_k / (|α_k| + β_{k-1}) over the steps the
+    guard kept: how near the recurrence came to its breakdown guard (the
+    device Lanczos zeroes a step below 1e-5 of it, the host one below
+    1e-12). inf for a column with no kept step."""
+    alphas, betas = np.asarray(alphas), np.asarray(betas)
+    k, r = betas.shape
+    if k == 0:
+        return np.full(r, np.inf)
+    prev = np.vstack([np.zeros((1, r)), betas[:-1]])
+    ratio = np.where(betas > 0.0,
+                     betas / np.maximum(np.abs(alphas[:k]) + prev, 1e-300),
+                     np.inf)
+    return ratio.min(axis=0)
+
+
 class ShiftedKrylov:
     """One batched Lanczos pass on the UNSHIFTED kernel, reusable for
     EVERY shift δ: the Krylov space of H(δ) = K + δI is independent of δ
@@ -206,6 +235,13 @@ class ShiftedKrylov:
             w, Q = np.linalg.eigh(T)
             self.w[:, j] = w
             self.Q[j] = Q
+        # what the clip below hides, kept for diagnosis (ROADMAP F5): T's
+        # coefficients, the Ritz values as T gives them, and each column's
+        # breakdown step
+        self.alphas, self.betas = alphas, betas
+        self.w_raw = self.w.copy()
+        self.guard_step = guard_steps(betas)
+        self.guard_ratio = guard_ratio_min(alphas, betas)
         # the kernel is PSD by construction (K = W·Wᵀ/s0, or Z·K·Zᵀ);
         # negative Ritz values are pure f32 Lanczos noise, and 1/(w+δ)
         # at small δ turns them into huge negative solve components that

@@ -40,7 +40,13 @@ Usage (from the root of a checkout; CUDA unless ``--device cpu``):
          --pallas-bench
 
 ``--dir`` defaults to $EAGLE_COHORT_DIR, else build/cohort in the
-checkout; ``--n``/``--p`` shrink the cohort. Disk: 12.5 GB for the store.
+checkout; ``--n``/``--p`` shrink the cohort; ``--maf LO,HI`` draws each
+SNP's minor-allele frequency from [LO, HI] in place of [0.05, 0.5] (the
+same draws in the same order, so the default stays the JAX script's
+cohort byte for byte; a low range raises the kernel's top eigenvalue over
+its bulk, as ROADMAP F5's cohorts need), and ``--poly K`` makes every SNP
+from K on monomorphic (W = -1: the mean component alone, which raises the
+top eigenvalue further). Disk: 12.5 GB for the store.
 """
 
 from __future__ import annotations
@@ -78,7 +84,9 @@ def _where(device: torch.device) -> str:
 
 
 def generate(dir: str, n: int, p: int, n_qtl: int = 8, seed: int = 7,
-             block: int = BLOCK, device="cpu") -> dict:
+             block: int = BLOCK, device="cpu",
+             maf: tuple[float, float] = (0.05, 0.5),
+             poly: int | None = None) -> dict:
     """The JAX script's cohort, byte for byte: ``<dir>/store`` (8 packed
     shards and the manifest), ``y.npy`` and ``meta.json`` (whose
     ``gen_seconds`` is this run's). Each block's MAFs and uint16 draws
@@ -102,11 +110,14 @@ def generate(dir: str, n: int, p: int, n_qtl: int = 8, seed: int = 7,
         for j0 in range(0, p, block):
             b = min(block, p - j0)
             td = time.perf_counter()
-            # per-SNP MAF in [0.05, 0.5]; HWE genotypes 0/1/2 from 16-bit
-            # thresholds of uint16 draws
-            maf = rng.uniform(0.05, 0.5, size=(b, 1))
-            t_hom = np.rint(65536.0 * maf**2).astype(np.uint16)
-            t_het = np.rint(65536.0 * (maf**2 + 2 * maf * (1 - maf))
+            # per-SNP MAF in ``maf`` ([0.05, 0.5]); HWE genotypes 0/1/2
+            # from 16-bit thresholds of uint16 draws
+            f = rng.uniform(maf[0], maf[1], size=(b, 1))
+            if poly is not None:
+                # SNPs from ``poly`` on are monomorphic (MAF 0: W = -1)
+                f[max(poly - j0, 0):] = 0.0
+            t_hom = np.rint(65536.0 * f**2).astype(np.uint16)
+            t_het = np.rint(65536.0 * (f**2 + 2 * f * (1 - f))
                             ).astype(np.uint16)
             u = axes.uint16_draws(rng, b * n)
             draw_s[0] += time.perf_counter() - td
@@ -141,7 +152,10 @@ def generate(dir: str, n: int, p: int, n_qtl: int = 8, seed: int = 7,
     y = g + rng.normal(0, np.sqrt(max(1e-6, 1.0 - float(np.var(g)))), size=n)
     np.save(os.path.join(dir, "y.npy"), y)
     meta = {"n": n, "p": p, "qtl_indices": [int(q) for q in qtl_idx],
-            "beta": beta.tolist(), "seed": seed, "gen_seconds": gen_s,
+            "beta": beta.tolist(), "seed": seed,
+            **({} if tuple(maf) == (0.05, 0.5) else {"maf": list(maf)}),
+            **({} if poly is None else {"poly": poly}),
+            "gen_seconds": gen_s,
             "store_bytes": sum(
                 os.path.getsize(os.path.join(store_dir, f))
                 for f in os.listdir(store_dir))}
@@ -448,6 +462,11 @@ def main() -> None:
                     help="directory of the result files (default --dir)")
     ap.add_argument("--n", type=int, default=50000)
     ap.add_argument("--p", type=int, default=1000000)
+    ap.add_argument("--maf", default="0.05,0.5",
+                    help="LO,HI: the range of each SNP's minor-allele "
+                         "frequency (--gen)")
+    ap.add_argument("--poly", type=int, default=None,
+                    help="K: SNPs from K on are monomorphic (--gen)")
     ap.add_argument("--gen", action="store_true")
     ap.add_argument("--run", action="store_true")
     ap.add_argument("--maxit", type=int, default=3)
@@ -471,7 +490,9 @@ def main() -> None:
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise SystemExit("CUDA is not available; pass --device cpu")
     if args.gen or not os.path.exists(os.path.join(args.dir, "meta.json")):
-        generate(args.dir, args.n, args.p, device=args.device)
+        lo, hi = (float(v) for v in args.maf.split(","))
+        generate(args.dir, args.n, args.p, device=args.device, maf=(lo, hi),
+                 poly=args.poly)
     if args.pallas_bench:
         pallas_bench(args.dir, args.device, args.out)
         return

@@ -140,10 +140,15 @@ def _emit(obj: dict) -> None:
 
 
 def matfree_profile(backend, y: np.ndarray, Xs: dict[str, np.ndarray],
-                    proto_name: str, s0: float) -> dict:
+                    proto_name: str, s0: float,
+                    lanczos: str = "device") -> dict:
     """The matrix-free engine's profile, δ̂ and log-likelihood of each
     model at one protocol; the model plus J also refit as the scan's
-    accept test (δ-hinted at the model's δ̂)."""
+    accept test (δ-hinted at the model's δ̂). ``lanczos`` builds the basis
+    on [X y] by the backend's device Lanczos (the engine's own) or, with
+    "host", by ShiftedKrylov's host f64 recurrence over the same kernel
+    matvec (the JAX package's path on a TPU, whose breakdown guard is
+    1e-12 where the device one is 1e-5)."""
     from eagleeverything_tpu_torch.models import bigscan, reml_core
     from eagleeverything_tpu_torch.ops import packed
 
@@ -156,8 +161,12 @@ def matfree_profile(backend, y: np.ndarray, Xs: dict[str, np.ndarray],
     ctx = bigscan.make_context(backend, n, probes=proto["probes"],
                                lanczos_m=proto["lanczos_m"], s0=s0)
     ctx.solve_m, ctx.solve_m_refit = proto["solve_m"], proto["solve_m_refit"]
-    out = {"protocol": proto_name, **proto, "models": {}}
+    out = {"protocol": proto_name, **proto, "lanczos": lanczos,
+           "models": {}}
     fits = {}
+    # each model's raw Ritz values and quadrature weights (Q0²), for
+    # weight_below_floor once the exact spectrum is known (run pops them)
+    nodes = out["_nodes"] = {}
     for name, X in Xs.items():
         Xi, _ = reml_core.independent_cols(X)
         B = np.column_stack([Xi, y])
@@ -165,9 +174,10 @@ def matfree_profile(backend, y: np.ndarray, Xs: dict[str, np.ndarray],
               f"{X.shape[1]}; B finite:", bool(np.all(np.isfinite(B))),
               flush=True)
         t1 = time.perf_counter()
-        sk = bigscan.ShiftedKrylov(ctx.kernel_matvec, B, m=ctx.solve_m,
-                                   reorth=True,
-                                   device_lanczos=ctx.device_lanczos)
+        sk = bigscan.ShiftedKrylov(
+            ctx.kernel_matvec, B, m=ctx.solve_m, reorth=True,
+            device_lanczos=ctx.device_lanczos if lanczos == "device"
+            else None)
         sk_s = time.perf_counter() - t1
         print(f"[dbg] sk built in {sk_s:.0f}s; w finite:",
               bool(np.all(np.isfinite(sk.w))), "w range",
@@ -195,9 +205,14 @@ def matfree_profile(backend, y: np.ndarray, Xs: dict[str, np.ndarray],
              "extbic": reml_core.extbic(fit.loglik, n, p, k),
              "logdet_at_delta_hat": ctx.logdet(fit.delta),
              "w_min": float(np.min(sk.w)), "w_max": float(np.max(sk.w)),
+             **krylov_fields(sk),
              "z_norm": sk.z_norm.tolist(), "basis_s": sk_s,
              "fit_s": time.perf_counter() - t1, "profile": rows}
+        print(f"[dbg] {proto_name} {name}: raw Ritz min {m['w_raw_min']:.6g}"
+              f" ({m['n_negative']} below 0), guard steps "
+              f"{m['guard_step']}", flush=True)
         out["models"][name] = m
+        nodes[name] = (sk.w_raw, sk.Q0 ** 2)
         fits[name] = fit
         del sk
     names = list(Xs)
@@ -218,6 +233,39 @@ def matfree_profile(backend, y: np.ndarray, Xs: dict[str, np.ndarray],
     out["seconds"] = time.perf_counter() - t0
     out["launches"] = {k: v - before[k] for k, v in packed.LAUNCHES.items()}
     return out
+
+
+def krylov_fields(sk) -> dict:
+    """What ShiftedKrylov's clip of negative Ritz values to 0 hides (ROADMAP
+    F5), over the columns of [X y]: the smallest raw Ritz value, how many
+    fall below 0, the three lowest of each column, each column's
+    breakdown-guard step (-1: never) and its smallest β_k / (|α_k| +
+    β_{k-1}) (the device guard fires below 1e-5)."""
+    low = np.sort(sk.w_raw, axis=0)[:3]
+    return {"w_raw_min": float(np.min(sk.w_raw)),
+            "n_negative": int(np.sum(sk.w_raw < 0.0)),
+            "w_raw_low": low.T.tolist(),
+            "guard_step": [int(g) for g in sk.guard_step],
+            "guard_ratio_min": [float(g) for g in sk.guard_ratio],
+            "alpha_head": sk.alphas[:4].T.tolist(),
+            "beta_head": sk.betas[:4].T.tolist()}
+
+
+# a Ritz value counts as below the exact floor only past this share of
+# the largest one: an f32 Lanczos resolves a Ritz value to ~ε·‖K‖ (6e-8),
+# so one that converged on the floor lands within a few of those of it
+FLOOR_MARGIN = 1e-6
+
+
+def weight_below(w_raw: np.ndarray, q0sq: np.ndarray,
+                 floor: float) -> list[float]:
+    """Each column's quadrature weight (Q0², of 1 in all) on Ritz values
+    below ``floor``, the exact kernel's smallest eigenvalue on the same δ
+    scale, by more than FLOOR_MARGIN of the largest: the share of the
+    column's solve that 1/(w + δ) reads off nodes the kernel does not
+    have."""
+    below = w_raw < floor - FLOOR_MARGIN * np.max(w_raw)
+    return [float(v) for v in np.sum(np.where(below, q0sq, 0.0), axis=0)]
 
 
 def _rotate(basis, B: np.ndarray, device: torch.device,
@@ -401,7 +449,8 @@ def _exact_eigh(K_raw: np.ndarray, s0_e: float, scale: float, y, Xs,
     del K
     d_e = basis.d
     d_mf = d_e * scale          # the spectrum of K_raw / s0_mf
-    out.update(d_min=float(d_e[0]), d_max=float(d_e[-1]))
+    out.update(d_min=float(d_e[0]), d_max=float(d_e[-1]),
+               floor_matfree=float(d_mf[0]))
     names = list(Xs)
     t0 = time.perf_counter()
     R = _rotate(basis, np.column_stack([Xs[names[-1]], y]), dev)
@@ -551,7 +600,8 @@ def exact_profile(backend, y: np.ndarray, Xs: dict[str, np.ndarray],
 
 def run(dir: str, selected: list[int], add: int | None, exact: bool,
         protocols: list[str], device="cuda", out: str = "",
-        routes: tuple[str, ...] | None = None, block: int = 8192) -> dict:
+        routes: tuple[str, ...] | None = None, block: int = 8192,
+        host_eigh_max_n: int = 32768, lanczos: str = "device") -> dict:
     """Profile the model (and the model plus ``add``) on the cohort in
     ``dir`` with the matrix-free engine at each protocol and, with
     ``exact``, the exact engine by each of ``routes`` (default the one
@@ -577,14 +627,18 @@ def run(dir: str, selected: list[int], add: int | None, exact: bool,
         with open(path, "w") as f:
             json.dump(result, f, indent=1)
 
+    nodes = {}
     for name in protocols:
-        result["matfree"][name] = matfree_profile(backend, y, Xs, name, s0)
+        result["matfree"][name] = matfree_profile(backend, y, Xs, name, s0,
+                                                  lanczos)
+        nodes[name] = result["matfree"][name].pop("_nodes")
         save()
         if dev.type == "cuda":
             torch.cuda.empty_cache()
     kernel = compute_K(backend) if exact and len(routes) > 1 else None
     for i, route in enumerate(routes if exact else ()):
-        ex = exact_profile(backend, y, Xs, s0, crt._cohort_cfg("off"),
+        ex = exact_profile(backend, y, Xs, s0,
+                           crt._cohort_cfg("off", host_eigh_max_n),
                            route, block, kernel)
         logdet, ll_at = ex.pop("_logdet"), ex.pop("_ll_at")
         if i == 0:
@@ -601,6 +655,11 @@ def run(dir: str, selected: list[int], add: int | None, exact: bool,
                     m["profile_gap_max"] = max(
                         abs(a["ll"] - b["ll"]) for a, b in
                         zip(m["profile"][2:-2], em["profile"][2:-2]))
+            if "floor_matfree" in ex:
+                for proto, mf in result["matfree"].items():
+                    for name, m in mf["models"].items():
+                        m["weight_below_floor"] = weight_below(
+                            *nodes[proto][name], ex["floor_matfree"])
         result["exact" if i == 0 else f"exact_{route}"] = ex
         save()
         if dev.type == "cuda":
@@ -615,7 +674,9 @@ def run(dir: str, selected: list[int], add: int | None, exact: bool,
     for name, mf in result["matfree"].items():
         summary[f"matfree_{name}"] = {
             m: {k: v[k] for k in ("delta_hat", "loglik", "extbic",
-                                  "extbic_excess", "profile_gap_max")
+                                  "extbic_excess", "profile_gap_max",
+                                  "w_raw_min", "n_negative", "guard_step",
+                                  "weight_below_floor")
                 if k in v}
             for m, v in mf["models"].items()}
         summary[f"matfree_{name}"]["extbic_change"] = mf.get("extbic_change")
@@ -646,6 +707,14 @@ def main() -> None:
     ap.add_argument("--routes", default="",
                     help="comma-separated exact routes: eigh, cholesky "
                          "(default: exact_route's)")
+    ap.add_argument("--host-eigh-max-n", type=int, default=32768,
+                    help="the eigh route decomposes on the host in f64 up "
+                         "to this n (the cohort config's), on the device "
+                         "above it")
+    ap.add_argument("--lanczos", default="device", choices=["device", "host"],
+                    help="the [X y] basis by the device Lanczos (the "
+                         "engine's) or the host f64 recurrence over the same "
+                         "matvec")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default="")
     args = ap.parse_args()
@@ -660,7 +729,8 @@ def main() -> None:
         if route not in ("eigh", "cholesky"):
             raise SystemExit(f"unknown route {route!r}")
     run(args.dir, [int(s) for s in args.selected.split(",") if s],
-        args.add, args.exact, protocols, args.device, args.out, routes)
+        args.add, args.exact, protocols, args.device, args.out, routes,
+        host_eigh_max_n=args.host_eigh_max_n, lanczos=args.lanczos)
 
 
 if __name__ == "__main__":

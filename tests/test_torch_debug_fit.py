@@ -199,13 +199,38 @@ def test_the_jax_side_of_f5_holds_the_port(run):
     """tests/jax_matfree_profile.py (the JAX package's matrix-free profile
     and fit, for cohorts too large for the suite) on the same cohort: the
     profiles within rtol 1e-6, the fits' log-likelihoods within 1e-6 of
-    their size, and the extBIC excess over the exact supremum alike."""
+    their size, and the extBIC excess over the exact supremum alike. The
+    Krylov diagnostics of ROADMAP F5 are equal too: each column's guard
+    step (the guard fires nowhere here) and the count of negative raw Ritz
+    values exactly; the raw Ritz values, T's first coefficients and the
+    guard ratios to f32 tolerance of the kernel's scale (two f32 device
+    Lanczos runs, XLA's and torch's, on the same inputs: 1e-5 of the
+    largest Ritz value), and the weight on Ritz values below the exact
+    floor within 1e-6."""
     d, res = run
     jm = _load("jax_matfree_profile", ROOT / "tests" / "jax_matfree_profile.py")
     got = jm.profile(str(d), res, "default")
-    assert set(got["models"]) == set(res["matfree"]["default"]["models"])
+    mf = res["matfree"]["default"]["models"]
+    assert set(got["models"]) == set(mf)
     for name, m in got["models"].items():
         assert m["profile_rel_gap_max"] < 1e-6
         assert abs(m["loglik_gap"]) < 1e-6 * abs(m["loglik"])
         assert m["extbic_excess"] == pytest.approx(m["port_extbic_excess"],
                                                    abs=1e-3)
+        pm = mf[name]
+        assert m["lanczos"] == "device"
+        assert m["guard_step"] == pm["guard_step"]
+        assert set(m["guard_step"]) == {-1}
+        assert m["n_negative"] == pm["n_negative"]
+        scale = 1e-5 * pm["w_max"]
+        assert m["w_raw_min"] == pytest.approx(pm["w_raw_min"], abs=scale)
+        np.testing.assert_allclose(m["w_raw_low"], pm["w_raw_low"],
+                                   atol=scale)
+        np.testing.assert_allclose(m["alpha_head"], pm["alpha_head"],
+                                   rtol=1e-5, atol=scale)
+        np.testing.assert_allclose(m["beta_head"], pm["beta_head"],
+                                   rtol=1e-5, atol=scale)
+        np.testing.assert_allclose(m["guard_ratio_min"],
+                                   pm["guard_ratio_min"], rtol=1e-4)
+        np.testing.assert_allclose(m["weight_below_floor"],
+                                   pm["weight_below_floor"], atol=1e-6)
