@@ -1,0 +1,7 @@
+"""peak_mem_gb and peak_mem_gb.exact (one a call_s metric):
+``torch.cuda.max_memory_allocated`` over the window, in GB (1e9
+bytes)."""
+
+
+def read(run):
+    return run.peak_bytes / 1e9 if run.peak_bytes else None
