@@ -15,6 +15,7 @@ all of which share the same host-f64 REML/extBIC decision path
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Union
 
 import numpy as np
@@ -24,8 +25,23 @@ from eagleeverything_tpu_torch.api.common import prepare_inputs
 from eagleeverything_tpu_torch.api.read import GenoHandle, MapHandle, PhenoHandle
 from eagleeverything_tpu_torch.models import oracle
 from eagleeverything_tpu_torch.models.oracle import AMResult
+from eagleeverything_tpu_torch.utils import distributed
+from eagleeverything_tpu_torch.utils import logging as scanlog
 from eagleeverything_tpu_torch.utils.config import DEFAULT_CONFIG, EagleConfig
 from eagleeverything_tpu_torch.utils.device import resolve_device
+
+
+@contextlib.contextmanager
+def _call_log(name: str, quiet: bool, log_jsonl: Optional[str]):
+    """The call's one scan logger (on ``log_jsonl``, host 0 only), open
+    for the call inside its root span ``name``; the engines log into it."""
+    logger = scanlog.ScanLogger(quiet=quiet, jsonl_path=log_jsonl,
+                                is_host0=distributed.is_host0())
+    try:
+        with scanlog.Phase(logger, name):
+            yield logger
+    finally:
+        logger.close()
 
 
 def am(
@@ -78,74 +94,81 @@ def am(
       ckpt_dir, resume: MMt/eigenbasis cache and per-iteration scan state
         (exact and matrix-free engines); ``resume`` restarts from the last
         accepted marker.
+      log_jsonl: the scan log, appended to as JSON lines: a ``phase``
+        event for each span of the call (its root ``am``, the steps inside
+        it), iterations and counters (utils/logging).
       device: where the exact and matrix-free engines run: CUDA unless the
         caller passes ``"cpu"`` (raises when CUDA is asked for and absent).
     """
-    dev = resolve_device(device)
-    prep = prepare_inputs(trait, geno, pheno, fformula, Zmat)
+    with _call_log("am", quiet, log_jsonl) as logger:
+        with scanlog.Phase(logger, "prep"):
+            dev = resolve_device(device)
+            prep = prepare_inputs(trait, geno, pheno, fformula, Zmat)
+            if engine == "auto":
+                n_ind = prep.handle.n
+                engine = "matfree" if n_ind > config.matfree_min_n else "jax"
+        if engine == "oracle":
+            geno_raw = prep.handle.materialize()
+            if prep.keep_individuals is not None:
+                geno_raw = geno_raw[prep.keep_individuals]
+            res = oracle.forward_select(
+                prep.y, prep.X0, geno_raw, maxit=maxit, fixit=fixit,
+                lam_ebic=lam, Z=prep.Z, quiet=quiet,
+            )
+        elif engine in ("jax", "sharded"):
+            from eagleeverything_tpu_torch.models import engine_torch
+            res = engine_torch.forward_select(
+                prep.y, prep.X0, prep.handle, maxit=maxit, fixit=fixit,
+                lam_ebic=lam, Z=prep.Z, quiet=quiet, config=config,
+                keep_records=prep.keep_individuals, ckpt_dir=ckpt_dir,
+                resume=resume, device=dev, sharded=(engine == "sharded"),
+                logger=logger,
+            )
+        elif engine == "matfree":
+            # biobank n-scale mode: K never materialized — CG/SLQ REML and
+            # the two-stage probe/exact score sweep
+            # (docs/design_biobank_scale.md) over the packed stack, on the
+            # device or streamed through it (each rank's SNP range in a
+            # multi-process run: the kernel matvec sums over the ranks)
+            from eagleeverything_tpu_torch.models import bigscan, engine_torch
+            with scanlog.Phase(logger, "backend"):
+                src = engine_torch._make_source(prep.handle,
+                                                prep.keep_individuals)
+                backend = engine_torch.scan_backend(src, config, dev)
+            res = bigscan.forward_select_matfree(
+                prep.y, prep.X0, backend, maxit=maxit, fixit=fixit,
+                lam_ebic=lam, quiet=quiet, Z=prep.Z, logger=logger,
+                probes=config.matfree_probes,
+                lanczos_m=config.matfree_lanczos_m,
+                diag_probes=config.matfree_diag_probes,
+                exact_topk=config.matfree_exact_topk,
+                solve_m=config.matfree_solve_m,
+                solve_m_refit=config.matfree_solve_m_refit,
+                cache_max_bytes=int(config.matfree_cache_gb * 1e9),
+                column_f64=backend.column_f64,
+                ckpt_dir=ckpt_dir, resume=resume,
+            )
+        else:
+            raise ValueError(f"unknown engine {engine!r}")
 
-    if engine == "auto":
-        n_ind = prep.handle.n
-        engine = "matfree" if n_ind > config.matfree_min_n else "jax"
-    if engine == "oracle":
-        geno_raw = prep.handle.materialize()
-        if prep.keep_individuals is not None:
-            geno_raw = geno_raw[prep.keep_individuals]
-        res = oracle.forward_select(
-            prep.y, prep.X0, geno_raw, maxit=maxit, fixit=fixit,
-            lam_ebic=lam, Z=prep.Z, quiet=quiet,
-        )
-    elif engine in ("jax", "sharded"):
-        from eagleeverything_tpu_torch.models import engine_torch
-        res = engine_torch.forward_select(
-            prep.y, prep.X0, prep.handle, maxit=maxit, fixit=fixit,
-            lam_ebic=lam, Z=prep.Z, quiet=quiet, config=config,
-            keep_records=prep.keep_individuals, ckpt_dir=ckpt_dir,
-            resume=resume, log_jsonl=log_jsonl, device=dev,
-            sharded=(engine == "sharded"),
-        )
-    elif engine == "matfree":
-        # biobank n-scale mode: K never materialized — CG/SLQ REML and the
-        # two-stage probe/exact score sweep (docs/design_biobank_scale.md)
-        # over the packed stack, on the device or streamed through it (each
-        # rank's SNP range in a multi-process run: the kernel matvec sums
-        # over the ranks)
-        from eagleeverything_tpu_torch.models import bigscan, engine_torch
-        src = engine_torch._make_source(prep.handle, prep.keep_individuals)
-        backend = engine_torch.scan_backend(src, config, dev)
-        res = bigscan.forward_select_matfree(
-            prep.y, prep.X0, backend, maxit=maxit, fixit=fixit,
-            lam_ebic=lam, quiet=quiet, Z=prep.Z, log_jsonl=log_jsonl,
-            probes=config.matfree_probes,
-            lanczos_m=config.matfree_lanczos_m,
-            diag_probes=config.matfree_diag_probes,
-            exact_topk=config.matfree_exact_topk,
-            solve_m=config.matfree_solve_m,
-            solve_m_refit=config.matfree_solve_m_refit,
-            cache_max_bytes=int(config.matfree_cache_gb * 1e9),
-            column_f64=backend.column_f64,
-            ckpt_dir=ckpt_dir, resume=resume,
-        )
-    else:
-        raise ValueError(f"unknown engine {engine!r}")
-
-    # enrich with map info (reference AMclass: Mrk/Chr/Pos)
-    res.trait_name = trait
-    res.dropped_records = prep.dropped
-    handle = prep.handle
-    if map is not None:
-        if map.p != handle.p:
-            raise ValueError(f"map has {map.p} rows but genotypes have {handle.p} SNPs")
-        res.marker_names = [map.marker_names[j] for j in res.indices]
-        res.chr = [str(map.chrom[j]) for j in res.indices]
-        res.pos = [float(map.pos[j]) for j in res.indices]
-    elif handle.marker_names is not None:
-        res.marker_names = [handle.marker_names[j] for j in res.indices]
-        res.chr = [str(handle.chrom[j]) for j in res.indices]
-        res.pos = [float(handle.pos[j]) for j in res.indices]
-    if not quiet:
-        _print_result(res)
-    return res
+        # enrich with map info (reference AMclass: Mrk/Chr/Pos)
+        res.trait_name = trait
+        res.dropped_records = prep.dropped
+        handle = prep.handle
+        if map is not None:
+            if map.p != handle.p:
+                raise ValueError(f"map has {map.p} rows but genotypes "
+                                 f"have {handle.p} SNPs")
+            res.marker_names = [map.marker_names[j] for j in res.indices]
+            res.chr = [str(map.chrom[j]) for j in res.indices]
+            res.pos = [float(map.pos[j]) for j in res.indices]
+        elif handle.marker_names is not None:
+            res.marker_names = [handle.marker_names[j] for j in res.indices]
+            res.chr = [str(handle.chrom[j]) for j in res.indices]
+            res.pos = [float(handle.pos[j]) for j in res.indices]
+        if not quiet:
+            _print_result(res)
+        return res
 
 
 def am_multi(
@@ -178,15 +201,70 @@ def am_multi(
     (force the exact engine) or "matfree" (force the lockstep matrix-free
     scan: the resident stack, one union Krylov basis and one batched
     sweep an iteration for every trait,
-    ``bigscan.forward_select_matfree_multi``). ``ckpt_dir``, ``resume``
-    and ``log_jsonl`` are honoured by the matrix-free engine and accepted,
-    unused, by the exact one, as in the JAX package. ``device`` as in
-    :func:`am`.
+    ``bigscan.forward_select_matfree_multi``). ``ckpt_dir`` and
+    ``resume`` are honoured by the matrix-free engine and accepted,
+    unused, by the exact one, as in the JAX package; ``log_jsonl`` (the
+    scan log) and ``device`` as in :func:`am`.
     """
-    from eagleeverything_tpu_torch.api.design import build_design, na_rows
     from eagleeverything_tpu_torch.models import engine_torch
 
-    dev = resolve_device(device)
+    with _call_log("am_multi", quiet, log_jsonl) as logger:
+        with scanlog.Phase(logger, "prep"):
+            dev = resolve_device(device)
+            ys, X, drop, keep_idx, handle = _multi_inputs(traits, geno,
+                                                          pheno, fformula)
+            if engine == "auto":
+                engine = ("matfree" if handle.n > config.matfree_min_n
+                          else "jax")
+        if engine == "matfree":
+            # biobank n-scale multi-trait: the shared resident stack and ONE
+            # union Krylov basis an iteration for every trait (BASELINE
+            # config 5 at config 3's n)
+            from eagleeverything_tpu_torch.models import bigscan
+            with scanlog.Phase(logger, "backend"):
+                backend = engine_torch.scan_backend(
+                    engine_torch._make_source(handle, keep_idx), config, dev)
+            results = bigscan.forward_select_matfree_multi(
+                ys, X, backend,
+                maxit=maxit, fixit=fixit, lam_ebic=lam, quiet=quiet,
+                probes=config.matfree_probes,
+                lanczos_m=config.matfree_lanczos_m,
+                diag_probes=config.matfree_diag_probes,
+                exact_topk=config.matfree_exact_topk,
+                solve_m=config.matfree_solve_m,
+                solve_m_refit=config.matfree_solve_m_refit,
+                cache_max_bytes=int(config.matfree_cache_gb * 1e9),
+                column_f64=backend.column_f64, trait_names=list(traits),
+                logger=logger, ckpt_dir=ckpt_dir, resume=resume,
+            )
+        elif engine == "jax":
+            results = engine_torch.forward_select_multi(
+                ys, X, handle,
+                maxit=maxit, fixit=fixit, lam_ebic=lam, quiet=quiet,
+                config=config, keep_records=keep_idx,
+                trait_names=list(traits), device=dev, logger=logger,
+            )
+        else:
+            raise ValueError(f"unknown engine {engine!r}")
+        out = {}
+        for res in results:
+            res.dropped_records = drop
+            if map is not None:
+                res.marker_names = [map.marker_names[j] for j in res.indices]
+                res.chr = [str(map.chrom[j]) for j in res.indices]
+                res.pos = [float(map.pos[j]) for j in res.indices]
+            out[res.trait_name] = res
+            if not quiet:
+                _print_result(res)
+        return out
+
+
+def _multi_inputs(traits, geno, pheno, fformula):
+    """am_multi's traits (R, kept records), design (kept records, q), the
+    dropped records, the kept indices (None when all are kept) and the
+    genotype handle, under the union NA rule."""
+    from eagleeverything_tpu_torch.api.design import build_design, na_rows
+
     if isinstance(pheno, PhenoHandle):
         columns = pheno.columns
     else:
@@ -212,50 +290,8 @@ def am_multi(
     if handle.n != n_rec:
         raise ValueError(f"{n_rec} phenotype records vs {handle.n} "
                          "individuals")
-
-    if engine == "auto":
-        engine = "matfree" if handle.n > config.matfree_min_n else "jax"
     keep_idx = keep if len(keep) != n_rec else None
-    if engine == "matfree":
-        # biobank n-scale multi-trait: the shared resident stack and ONE
-        # union Krylov basis an iteration for every trait (BASELINE
-        # config 5 at config 3's n)
-        from eagleeverything_tpu_torch.models import bigscan
-        backend = engine_torch.scan_backend(
-            engine_torch._make_source(handle, keep_idx), config, dev)
-        results = bigscan.forward_select_matfree_multi(
-            ys_full[:, keep], X_full[keep], backend,
-            maxit=maxit, fixit=fixit, lam_ebic=lam, quiet=quiet,
-            probes=config.matfree_probes,
-            lanczos_m=config.matfree_lanczos_m,
-            diag_probes=config.matfree_diag_probes,
-            exact_topk=config.matfree_exact_topk,
-            solve_m=config.matfree_solve_m,
-            solve_m_refit=config.matfree_solve_m_refit,
-            cache_max_bytes=int(config.matfree_cache_gb * 1e9),
-            column_f64=backend.column_f64, trait_names=list(traits),
-            log_jsonl=log_jsonl, ckpt_dir=ckpt_dir, resume=resume,
-        )
-    elif engine == "jax":
-        results = engine_torch.forward_select_multi(
-            ys_full[:, keep], X_full[keep], handle,
-            maxit=maxit, fixit=fixit, lam_ebic=lam, quiet=quiet,
-            config=config, keep_records=keep_idx,
-            trait_names=list(traits), device=dev,
-        )
-    else:
-        raise ValueError(f"unknown engine {engine!r}")
-    out = {}
-    for res in results:
-        res.dropped_records = drop
-        if map is not None:
-            res.marker_names = [map.marker_names[j] for j in res.indices]
-            res.chr = [str(map.chrom[j]) for j in res.indices]
-            res.pos = [float(map.pos[j]) for j in res.indices]
-        out[res.trait_name] = res
-        if not quiet:
-            _print_result(res)
-    return out
+    return ys_full[:, keep], X_full[keep], drop, keep_idx, handle
 
 
 def _print_result(res: AMResult) -> None:

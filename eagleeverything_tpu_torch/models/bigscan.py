@@ -51,6 +51,7 @@ import numpy as np
 
 from eagleeverything_tpu_torch.models import reml_core
 from eagleeverything_tpu_torch.models.oracle import AMResult
+from eagleeverything_tpu_torch.utils import logging as scanlog
 
 Matvec = Callable[[np.ndarray], np.ndarray]  # (n, r) -> (n, r)
 
@@ -205,6 +206,12 @@ class ShiftedKrylov:
     def __init__(self, matvec_k: Matvec, Z: np.ndarray, m: int,
                  reorth: bool = False, device_lanczos=None,
                  need_basis: bool = True):
+        with scanlog.Phase(None, "krylov_basis"):
+            self._build(matvec_k, Z, m, reorth, device_lanczos,
+                        need_basis)
+
+    def _build(self, matvec_k, Z, m, reorth, device_lanczos,
+               need_basis) -> None:
         Z = np.asarray(Z, dtype=np.float64)
         n, r = Z.shape
         m = min(m, n)
@@ -269,10 +276,9 @@ class ShiftedKrylov:
             import torch
             s0, s1, _ = sl.indices(self.r)   # resolve vs the TRUE width
             V = self._V_dev[s0:s1]                         # (w, m, n)
-            cd = torch.as_tensor(np.ascontiguousarray(c.T[:, :, None]),
-                                 dtype=torch.float32, device=V.device)
+            cd = scanlog.to_device(c.T[:, :, None], V.device)
             out = torch.bmm(V.transpose(1, 2), cd)[:, :, 0]   # (w, n)
-            return out.T.cpu().numpy().astype(np.float64)
+            return scanlog.to_host(out.T).astype(np.float64)
         return np.einsum("mnr,mr->nr", self.V[:, :, sl], c)
 
     def solve(self, delta: float, sl: slice = slice(None)) -> np.ndarray:
@@ -588,25 +594,27 @@ def reml_maximize_matfree(
         def ll_of(d: float) -> float:
             return reml_loglik_matfree(ctx, d, y, X)[0]
 
-    grid = np.exp(np.linspace(llim, ulim, ngrids + 1))
-    lls = np.array([ll_of(d) for d in grid])
-    lls = np.where(np.isfinite(lls), lls, -np.inf)  # NaN never wins argmax
-    i = int(np.argmax(lls))
-    lo = grid[max(i - 1, 0)]
-    hi = grid[min(i + 1, ngrids)]
-    # golden-section refinement on log-delta
-    import scipy.optimize as _opt
-    res = _opt.minimize_scalar(
-        lambda ld: -ll_of(math.exp(ld)),
-        bounds=(math.log(lo), math.log(hi)), method="bounded",
-        options={"xatol": 1e-3},
-    )
-    delta = float(math.exp(res.x))
+    with scanlog.Phase(None, "delta_search"):
+        grid = np.exp(np.linspace(llim, ulim, ngrids + 1))
+        lls = np.array([ll_of(d) for d in grid])
+        lls = np.where(np.isfinite(lls), lls, -np.inf)  # NaN never wins
+        i = int(np.argmax(lls))
+        lo = grid[max(i - 1, 0)]
+        hi = grid[min(i + 1, ngrids)]
+        # golden-section refinement on log-delta
+        import scipy.optimize as _opt
+        res = _opt.minimize_scalar(
+            lambda ld: -ll_of(math.exp(ld)),
+            bounds=(math.log(lo), math.log(hi)), method="bounded",
+            options={"xatol": 1e-3},
+        )
+        delta = float(math.exp(res.x))
     # final fit values at δ̂ use exact CG solves (decision-path accuracy),
     # warm-started from the basis solution at δ̂ when one exists
-    x0 = solver(delta) if solver is not None else (
-        sk.solve(delta) if sk else None)
-    ll, yPy = reml_loglik_matfree(ctx, delta, y, X, x0=x0)
+    with scanlog.Phase(None, "polish"):
+        x0 = solver(delta) if solver is not None else (
+            sk.solve(delta) if sk else None)
+        ll, yPy = reml_loglik_matfree(ctx, delta, y, X, x0=x0)
     # nq uses the RANK of X (independent_cols-reduced), matching the
     # n−q convention of the LL itself — collinear columns don't inflate σ²
     nq = y.shape[0] - Xi.shape[1]
@@ -713,19 +721,22 @@ def score_sweep_matfree(
         diag_l, proj_l = cached["diag_l"], cached["proj_l"]
         XtHiX_inv = cached["XtHiX_inv"]
     else:
-        B = np.column_stack([X, y])
-        # sol0 (the accept-test's Krylov solve of the SAME [X y] block at
-        # the same δ̂, from forward_select_matfree) warm-starts this CG —
-        # typically a handful of polishing iterations, not a cold solve
-        Sol = ctx.solve_block(fit.delta, B, x0=sol0)
-        HiX, Hiy = Sol[:, :q], Sol[:, q]
-        XtHiX = X.T @ HiX
-        XtHiy = X.T @ Hiy
-        Py = Hiy - HiX @ np.linalg.solve(XtHiX, XtHiy)
+        with scanlog.Phase(None, "solve"):
+            B = np.column_stack([X, y])
+            # sol0 (the accept-test's Krylov solve of the SAME [X y] block
+            # at the same δ̂, from forward_select_matfree) warm-starts this
+            # CG — typically a handful of polishing iterations, not a cold
+            # solve
+            Sol = ctx.solve_block(fit.delta, B, x0=sol0)
+            HiX, Hiy = Sol[:, :q], Sol[:, q]
+            XtHiX = X.T @ HiX
+            XtHiy = X.T @ Hiy
+            Py = Hiy - HiX @ np.linalg.solve(XtHiX, XtHiy)
 
-        rng = np.random.default_rng(12345)
-        probes = rng.choice((-1.0, 1.0), size=(n, diag_probes))
-        HZp = ctx.isqrt_probes(fit.delta, probes)
+        with scanlog.Phase(None, "probes"):
+            rng = np.random.default_rng(12345)
+            probes = rng.choice((-1.0, 1.0), size=(n, diag_probes))
+            HZp = ctx.isqrt_probes(fit.delta, probes)
 
         # one device pass computes all per-SNP statistics; with an
         # incidence matrix the effective sweep columns are Z·w_j, so dots
@@ -734,10 +745,11 @@ def score_sweep_matfree(
         # packed stack reduces the probe block on device
         # (engine_torch.TiledScan.matfree_stat_rows: (p, q+3) transferred,
         # not (p, 1+q+r)).
-        XtHiX_inv = np.linalg.inv(XtHiX)
-        A = np.column_stack([Py, HiX, HZp])       # (n_rec, 1+q+r)
-        ahat_l, U_l, diag_l, proj_l = backend.matfree_stat_rows(
-            ctx.zt_apply(Z, A), q, XtHiX_inv)
+        with scanlog.Phase(None, "stat_pass"):
+            XtHiX_inv = np.linalg.inv(XtHiX)
+            A = np.column_stack([Py, HiX, HZp])       # (n_rec, 1+q+r)
+            ahat_l, U_l, diag_l, proj_l = backend.matfree_stat_rows(
+                ctx.zt_apply(Z, A), q, XtHiX_inv)
         if ck_file is not None:
             tmp = ck_file + f".tmp.{os.getpid()}"
             with open(tmp, "wb") as f:
@@ -801,12 +813,13 @@ def score_sweep_matfree(
     if elig.size == 0:
         return t, 0, {"escalation_rounds": 0, "exhausted": False,
                       "n_rescored": 0}
-    k = min(exact_topk, elig.size)
-    top = elig[np.argpartition(t_est[elig], -k)[-k:]]
-    top = top[np.argsort(-t_est[top], kind="stable")]
-    t[top] = rescore(top)
-    rescored[top] = True
-    t_best = float(t[top].max())
+    with scanlog.Phase(None, "rescore"):
+        k = min(exact_topk, elig.size)
+        top = elig[np.argpartition(t_est[elig], -k)[-k:]]
+        top = top[np.argsort(-t_est[top], kind="stable")]
+        t[top] = rescore(top)
+        rescored[top] = True
+        t_best = float(t[top].max())
 
     # stage 2 — escalation guard: with r probes the diagonal estimate has
     # relative std ≈ √(2/r); any non-rescored SNP whose statistic at the
@@ -818,40 +831,41 @@ def score_sweep_matfree(
     rounds = 0
     exhausted = False
     for round_i in range(max_escalation_rounds + 1):
-        vara_lb_l = fit.sigma2_g * np.maximum(
-            diag_l * (1.0 - rel) - proj_l, 1e-12)
-        with np.errstate(divide="ignore", invalid="ignore"):
-            t_ub_l = np.where(vara_lb_l > 1e-12,
-                              ahat_l * ahat_l / vara_lb_l, 0.0)
-        t_ub_l = np.where(rescored[lo : lo + p_l], 0.0, t_ub_l)
-        cand_l = np.nonzero(t_ub_l > t_best)[0]
-        pairs_l = np.column_stack([
-            (cand_l + lo).astype(np.float64), t_ub_l[cand_l]])
-        pairs = (distributed.allgather_varlen_f64(pairs_l)
-                 if mh is not None else pairs_l)
-        if pairs.shape[0] == 0:
-            break  # every bound is dominated: the exact argmax is proven
-        if round_i == max_escalation_rounds:
-            # round budget spent with candidates still above the noise
-            # bound — the argmax below is UNPROVEN; report it loudly
-            exhausted = True
-            break
-        # deterministic order: descending bound, ties by ascending index
-        order = np.lexsort((pairs[:, 0], -pairs[:, 1]))
-        # merged rounds: rescore the WHOLE violating set at once (blocked
-        # CG serves every column with the same kernel matvecs, so a wide
-        # rescore costs the same number of STORE PASSES as a narrow one —
-        # only the column assembly/transfer grows). The cap bounds host
-        # memory and column-fetch traffic; r4 measured ~77 s/sweep of
-        # sequential narrow escalation rounds at 50k×1M that this folds
-        # into one round (VERDICT r4 item 4).
-        cap = escalation_batch if escalation_batch is not None \
-            else max(k, 128)
-        esc = pairs[order[:cap], 0].astype(np.int64)
-        t[esc] = rescore(esc)
-        rescored[esc] = True
-        t_best = max(t_best, float(t[esc].max()))
-        rounds += 1
+        with scanlog.Phase(None, "escalate"):
+            vara_lb_l = fit.sigma2_g * np.maximum(
+                diag_l * (1.0 - rel) - proj_l, 1e-12)
+            with np.errstate(divide="ignore", invalid="ignore"):
+                t_ub_l = np.where(vara_lb_l > 1e-12,
+                                  ahat_l * ahat_l / vara_lb_l, 0.0)
+            t_ub_l = np.where(rescored[lo : lo + p_l], 0.0, t_ub_l)
+            cand_l = np.nonzero(t_ub_l > t_best)[0]
+            pairs_l = np.column_stack([
+                (cand_l + lo).astype(np.float64), t_ub_l[cand_l]])
+            pairs = (distributed.allgather_varlen_f64(pairs_l)
+                     if mh is not None else pairs_l)
+            if pairs.shape[0] == 0:
+                break  # every bound is dominated: the exact argmax is proven
+            if round_i == max_escalation_rounds:
+                # round budget spent with candidates still above the noise
+                # bound — the argmax below is UNPROVEN; report it loudly
+                exhausted = True
+                break
+            # deterministic order: descending bound, ties by ascending index
+            order = np.lexsort((pairs[:, 0], -pairs[:, 1]))
+            # merged rounds: rescore the WHOLE violating set at once (blocked
+            # CG serves every column with the same kernel matvecs, so a wide
+            # rescore costs the same number of STORE PASSES as a narrow one —
+            # only the column assembly/transfer grows). The cap bounds host
+            # memory and column-fetch traffic; r4 measured ~77 s/sweep of
+            # sequential narrow escalation rounds at 50k×1M that this folds
+            # into one round (VERDICT r4 item 4).
+            cap = escalation_batch if escalation_batch is not None \
+                else max(k, 128)
+            esc = pairs[order[:cap], 0].astype(np.int64)
+            t[esc] = rescore(esc)
+            rescored[esc] = True
+            t_best = max(t_best, float(t[esc].max()))
+            rounds += 1
 
     # argmax over exactly-rescored, non-excluded entries (ascending index
     # order → lowest global index wins ties, the find_qtl contract)
@@ -927,7 +941,8 @@ def score_sweep_matfree_multi(
     if all(s is not None and s.shape == (n, cols[t])
            for t, s in enumerate(sol0s)):
         x0 = np.concatenate(sol0s, axis=1)
-    Sol_cat = ctx.solve_block_shifts(shifts, B_cat, x0=x0)
+    with scanlog.Phase(None, "solve"):
+        Sol_cat = ctx.solve_block_shifts(shifts, B_cat, x0=x0)
 
     offs = np.concatenate([[0], np.cumsum(cols)])
     Py_t, HiX_t, Minv_t = [], [], []
@@ -945,14 +960,16 @@ def score_sweep_matfree_multi(
     # H_t^(-1/2)·probes are cheap per-δ applies of ONE probe-Krylov basis
     # (cached, or one uncached device pass over the budget) — no extra
     # store passes a trait
-    rng = np.random.default_rng(12345)
-    probes = rng.choice((-1.0, 1.0), size=(n, diag_probes))
-    HZ_t = ctx.isqrt_probes_shifts(deltas, probes)
+    with scanlog.Phase(None, "probes"):
+        rng = np.random.default_rng(12345)
+        probes = rng.choice((-1.0, 1.0), size=(n, diag_probes))
+        HZ_t = ctx.isqrt_probes_shifts(deltas, probes)
     A_list = [np.column_stack([Py_t[t], HiX_t[t], HZ_t[t]])
               for t in range(R)]
 
     # --- the ONE batched stack pass -----------------------------------
-    stats = backend.matfree_stat_rows_multi(A_list, qs, Minv_t)
+    with scanlog.Phase(None, "stat_pass"):
+        stats = backend.matfree_stat_rows_multi(A_list, qs, Minv_t)
 
     mh = getattr(backend, "snp_range", None)
     lo = mh[0] if mh is not None else 0
@@ -1028,7 +1045,8 @@ def score_sweep_matfree_multi(
         top = elig[np.argpartition(t_est_t[t][elig], -k)[-k:]] \
             if k > 0 else np.zeros(0, np.int64)
         tops.append(top[np.argsort(-t_est_t[t][top], kind="stable")])
-    ts1 = rescore_batched(tops)
+    with scanlog.Phase(None, "rescore"):
+        ts1 = rescore_batched(tops)
     for t in range(R):
         if tops[t].size:
             t_t[t][tops[t]] = ts1[t]
@@ -1069,7 +1087,8 @@ def score_sweep_matfree_multi(
             for t in live:
                 exhausted[t] = True
             break
-        ts = rescore_batched(esc_sets)
+        with scanlog.Phase(None, "escalate"):
+            ts = rescore_batched(esc_sets)
         for t in live:
             t_t[t][esc_sets[t]] = ts[t]
             rescored_t[t][esc_sets[t]] = True
@@ -1144,10 +1163,11 @@ def make_context(backend, n: int, Z: Optional[np.ndarray] = None,
     if s0 is None:
         # mean diag of MMt = E_j ‖w_j‖² — estimate with one probe pass:
         # tr(MMt)/n = Σ_j ‖w_j‖²/n via Hutchinson on MMt
-        rng0 = np.random.default_rng(0)
-        Zp = rng0.choice((-1.0, 1.0), size=(n_ind, 16))
-        KZ = backend.kernel_matvec(Zp)
-        s0 = float(np.mean(np.sum(Zp * KZ, axis=0)) / n_ind)
+        with scanlog.Phase(None, "s0"):
+            rng0 = np.random.default_rng(0)
+            Zp = rng0.choice((-1.0, 1.0), size=(n_ind, 16))
+            KZ = backend.kernel_matvec(Zp)
+            s0 = float(np.mean(np.sum(Zp * KZ, axis=0)) / n_ind)
     s0 = s0 if s0 > 0 else 1.0
 
     z_idx = None
@@ -1222,12 +1242,15 @@ def forward_select_matfree(
     Z: Optional[np.ndarray] = None,
     ckpt_dir: Optional[str] = None,
     resume: bool = False,
+    logger=None,
 ) -> AMResult:
     """The AM loop with matrix-free REML + sweep (biobank n-scale mode).
 
     With an incidence matrix Z (n_rec × n_ind), the record-level kernel
     K_eff = Z·K·Zᵀ is reached matrix-free too:
     K_eff·V = Z·(Wᵀ(W·(Zᵀ·V)))/s0 — Z never touches the device kernels.
+    ``logger`` (a ScanLogger, which the caller closes) takes the place of
+    one opened on ``log_jsonl``.
     """
     from eagleeverything_tpu_torch.utils import distributed
     from eagleeverything_tpu_torch.utils.logging import Phase, ScanLogger
@@ -1236,8 +1259,10 @@ def forward_select_matfree(
     X0 = np.asarray(X0, dtype=np.float64)
     n = y.shape[0]
     p = getattr(backend, "p_global", backend.src.p)
-    logger = ScanLogger(quiet=quiet, jsonl_path=log_jsonl,
-                        is_host0=distributed.is_host0())
+    own_log = logger is None
+    if own_log:
+        logger = ScanLogger(quiet=quiet, jsonl_path=log_jsonl,
+                            is_host0=distributed.is_host0())
     if Z is not None:
         Z = np.asarray(Z, dtype=np.float64)
 
@@ -1396,7 +1421,8 @@ def forward_select_matfree(
                  h2d_bytes=backend.h2d_bytes,
                  read_bytes=backend.read_bytes, read_s=backend.read_s,
                  host_bytes=backend.stack_info()["host_bytes"])
-    logger.close()
+    if own_log:
+        logger.close()
     return AMResult(
         indices=selected, extbic_path=extbic_path,
         outlier_stats=outlier_stats, loglik_path=loglik_path,
@@ -1474,6 +1500,7 @@ def forward_select_matfree_multi(
     log_jsonl: Optional[str] = None,
     ckpt_dir: Optional[str] = None,
     resume: bool = False,
+    logger=None,
 ) -> list[AMResult]:
     """The AM loop for R traits in lockstep at biobank n (matrix-free).
 
@@ -1490,7 +1517,7 @@ def forward_select_matfree_multi(
     the union basis is identical to the single-trait bases, and every
     decision value (final LL, rescored t) is polished by exact CG.
     Reference: repeated ``AM()`` calls (SURVEY.md §3.1 FPR4AM/AM notes);
-    BASELINE config 5.
+    BASELINE config 5. ``logger`` as in :func:`forward_select_matfree`.
     """
     from eagleeverything_tpu_torch.utils import distributed
     from eagleeverything_tpu_torch.utils.logging import Phase, ScanLogger
@@ -1501,8 +1528,10 @@ def forward_select_matfree_multi(
     p = getattr(backend, "p_global", backend.src.p)
     if column_f64 is None:
         raise ValueError("forward_select_matfree_multi needs column_f64")
-    logger = ScanLogger(quiet=quiet, jsonl_path=log_jsonl,
-                        is_host0=distributed.is_host0())
+    own_log = logger is None
+    if own_log:
+        logger = ScanLogger(quiet=quiet, jsonl_path=log_jsonl,
+                            is_host0=distributed.is_host0())
 
     # the first kernel matvec (the s0 estimate) builds the stack (and
     # pins it on the host when it streams from there)
@@ -1665,7 +1694,8 @@ def forward_select_matfree_multi(
                  h2d_bytes=backend.h2d_bytes,
                  read_bytes=backend.read_bytes, read_s=backend.read_s,
                  host_bytes=backend.stack_info()["host_bytes"])
-    logger.close()
+    if own_log:
+        logger.close()
     out = []
     for t in range(R):
         res = AMResult(

@@ -58,6 +58,7 @@ from eagleeverything_tpu_torch.ops import kernels, packed
 from eagleeverything_tpu_torch.parallel import collectives
 from eagleeverything_tpu_torch.parallel import mesh as meshlib
 from eagleeverything_tpu_torch.utils import distributed
+from eagleeverything_tpu_torch.utils import logging as scanlog
 from eagleeverything_tpu_torch.utils.config import DEFAULT_CONFIG, EagleConfig
 
 MISSING = -9
@@ -255,9 +256,8 @@ class EigenBasis:
         the device when U lives there."""
         if self._U_host is not None:
             return self._U_host.T @ M
-        Md = torch.as_tensor(np.ascontiguousarray(M), dtype=torch.float32,
-                             device=self._device)
-        return (self._U_dev.T @ Md).cpu().numpy().astype(np.float64)
+        Md = scanlog.to_device(M, self._device)
+        return scanlog.to_host(self._U_dev.T @ Md).astype(np.float64)
 
     def device_basis(self) -> torch.Tensor:
         if self._U_dev is None:
@@ -308,16 +308,21 @@ def eigh_basis(K: np.ndarray, config: EagleConfig,
     PSD)."""
     n = K.shape[0]
     if n <= config.host_eigh_max_n:
-        d, U = np.linalg.eigh(K)
+        with scanlog.Phase(None, "eigh_solve"):
+            d, U = np.linalg.eigh(K)
         return EigenBasis(np.maximum(d, 0.0), U, None, device)
-    if n <= DEVICE_EIGH_MAX_N:
-        d_dev, U_dev = torch.linalg.eigh(
-            torch.as_tensor(K, dtype=torch.float32, device=device))
-    else:
-        d_dev, U_dev = eigh_large(
-            torch.as_tensor(K, dtype=torch.float32, device=device),
-            min(DEVICE_EIGH_MAX_N, EIGH_LEAF_N))
-    d = np.maximum(d_dev.cpu().numpy().astype(np.float64), 0.0)
+    with scanlog.Phase(None, "k_upload"):
+        # handed on by pop, so that no name here keeps the upload alive
+        # (eigh_large frees K once it has read it)
+        held = [scanlog.to_device(K, device)]
+    with scanlog.Phase(None, "eigh_solve"):
+        if n <= DEVICE_EIGH_MAX_N:
+            # cuSOLVER holds the host until it has decomposed K
+            d_dev, U_dev = scanlog.on_card(torch.linalg.eigh, held.pop())
+        else:
+            d_dev, U_dev = eigh_large(held.pop(),
+                                      min(DEVICE_EIGH_MAX_N, EIGH_LEAF_N))
+        d = np.maximum(scanlog.to_host(d_dev).astype(np.float64), 0.0)
     return EigenBasis(d, None, U_dev, device)
 
 
@@ -669,8 +674,8 @@ def eigh_large(K: torch.Tensor, max_n: int, nb: int = EIGH_PANEL,
         _apply_reflectors(held.pop(), tau, B, nb)
         lap("back_transform_s")
 
-    lam, U = _tridiag_eigh(d.double().cpu().numpy(),
-                           e.double().cpu().numpy(), max_n, device, left)
+    lam, U = _tridiag_eigh(scanlog.to_host(d.double()),
+                           scanlog.to_host(e.double()), max_n, device, left)
     lap("last_product_s")
     return torch.as_tensor(lam, device=device), U
 
@@ -1202,7 +1207,12 @@ class TiledScan:
             # host is little-endian, so a view is the right bits)
             wb = np.full((raw.shape[0], nw * 4), 0x55, dtype=np.uint8)
             wb[:, : raw.shape[1]] = raw
-            dest[j0 : j0 + raw.shape[0]] = torch.from_numpy(wb.view(np.int32))
+            rows = torch.from_numpy(wb.view(np.int32))
+            if dest.device.type == "cpu":
+                dest[j0 : j0 + raw.shape[0]] = rows
+            else:
+                scanlog.on_card(dest[j0 : j0 + raw.shape[0]].copy_, rows,
+                                h2d=wb.nbytes)
 
     def _page_locked(self, what: str, shape: tuple[int, int],
                      dtype: torch.dtype) -> torch.Tensor:
@@ -1232,6 +1242,11 @@ class TiledScan:
         through the ring. ``build_s`` times it all."""
         if self._pmeans is not None:
             return self._pstack
+        with scanlog.Phase(None, "stack"):
+            self._build_packed()
+        return self._pstack
+
+    def _build_packed(self) -> None:
         t0 = time.perf_counter()
         p, n = self.src.p, self.src.n
         if self.stack_mode == "resident":
@@ -1251,9 +1266,8 @@ class TiledScan:
                 means[r0 : r0 + Wc.shape[0]] = packed.row_means(Wc, n)
             self._pmeans = means
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            scanlog.on_card(torch.cuda.synchronize, self.device)
         self.build_s = time.perf_counter() - t0
-        return self._pstack
 
     def _stack_chunks(self) -> Iterator[tuple[int, torch.Tensor]]:
         """(row0, Wp chunk) over the stack, in row order: the unit every
@@ -1414,12 +1428,11 @@ class TiledScan:
                                   for t in held)}
 
     def _to_device(self, V: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(np.ascontiguousarray(V), dtype=torch.float32,
-                               device=self.device)
+        return scanlog.to_device(V, self.device)
 
     @staticmethod
     def _to_host(T: torch.Tensor) -> np.ndarray:
-        return T.cpu().numpy().astype(np.float64)
+        return scanlog.to_host(T).astype(np.float64)
 
     def _means(self, r0: int, Wc: torch.Tensor) -> torch.Tensor:
         return self._pmeans[r0 : r0 + Wc.shape[0]]
@@ -1715,7 +1728,8 @@ class TiledScan:
         K = torch.zeros((n, n), dtype=torch.float32, device=self.device)
         for _, w in self._device_tiles():
             K = kernels.mmt_accumulate(K, w)
-        return self._to_host(K)
+        with scanlog.Phase(None, "k_to_host"):
+            return self._to_host(K)
 
     def set_eigenbasis(self, U_eff) -> None:
         """Place the (possibly Zᵀ-projected) eigenbasis on the device once
@@ -1895,12 +1909,12 @@ class ShardedScan:
         self._T: Optional[torch.Tensor] = None
 
     def _to_device(self, a) -> torch.Tensor:
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32,
-                               device=self.device)
+        return scanlog.to_device(a, self.device)
 
     def compute_K(self) -> np.ndarray:
         K = collectives.mmt_psum(self.Wt, self.mesh)
-        return K.cpu().numpy().astype(np.float64)
+        with scanlog.Phase(None, "k_to_host"):
+            return scanlog.to_host(K).astype(np.float64)
 
     def set_eigenbasis(self, U_eff) -> None:
         """T = Wt·U (the rank's rows, all of U's columns summed over
@@ -1925,7 +1939,7 @@ class ShardedScan:
 
     def _result(self, out) -> tuple[np.ndarray, int, float]:
         t, i_glob, m_glob = out
-        return (t.cpu().numpy()[: self.src.p].astype(np.float64),
+        return (scanlog.to_host(t)[: self.src.p].astype(np.float64),
                 int(i_glob), float(m_glob))
 
     def sweep_eig(self, s, Q, z3, sigma2_g,
@@ -2005,6 +2019,7 @@ def forward_select(
     log_jsonl: Optional[str] = None,
     device="cuda",
     sharded: bool = False,
+    logger=None,
 ) -> AMResult:
     """The AM forward-selection loop on the exact eigenbasis engine
     (SURVEY.md §4.2): on one device, or with ``sharded`` SNP-sharded over
@@ -2016,19 +2031,23 @@ def forward_select(
     eigendecomposition; the tiny scan state is checkpointed at every
     accepted iteration, and ``resume=True`` restarts a killed scan (in a
     multi-process run: the whole job) from the last iteration boundary
-    (§6.3)."""
+    (§6.3). ``logger`` (a ScanLogger, which the caller closes) takes the
+    place of one opened on ``log_jsonl``."""
     from eagleeverything_tpu_torch.utils import checkpoint as ckpt
     from eagleeverything_tpu_torch.utils.logging import Phase, ScanLogger
 
     y = np.asarray(y, dtype=np.float64)
     X0 = np.asarray(X0, dtype=np.float64)
-    src = _make_source(handle, keep_records)
+    own_log = logger is None
+    if own_log:
+        logger = ScanLogger(quiet=quiet, jsonl_path=log_jsonl,
+                            is_host0=distributed.is_host0())
+    with Phase(logger, "backend"):
+        src = _make_source(handle, keep_records)
+        backend = (ShardedScan(src, config, device) if sharded
+                   else TiledScan(src, config, device, matfree=False))
     n = y.shape[0]
     p = src.p
-    logger = ScanLogger(quiet=quiet, jsonl_path=log_jsonl,
-                        is_host0=distributed.is_host0())
-    backend = (ShardedScan(src, config, device) if sharded
-               else TiledScan(src, config, device, matfree=False))
 
     K_raw = None
     mmt_key = None
@@ -2047,7 +2066,8 @@ def forward_select(
     if Z is None and n != src.n:
         raise ValueError(f"trait has {n} records but {src.n} genotyped "
                          "individuals")
-    K_eff = normalized_kernel(K_raw, Z)
+    with Phase(logger, "k_norm"):
+        K_eff = normalized_kernel(K_raw, Z)
 
     selected: list[int] = []
     extbic_path: list[float] = []
@@ -2096,23 +2116,27 @@ def forward_select(
         if eig_key is not None and basis.host_f64 is not None:
             ckpt.save_eig(ckpt_dir, eig_key, basis.d, basis.host_f64)
     d_eig = basis.d
-    y_star = basis.project(y)
-    Xs = basis.project(X)
-    # the sweep runs in K's eigenbasis on the device (T = W·U tiles); with
-    # Z the basis is Zᵀ·U (T_j = (Z·w_j)ᵀU = w_jᵀ·(ZᵀU)), folded on the
-    # host when U is there, else on the device, so U never reaches the host
-    if Z is None:
-        backend.set_eigenbasis(basis.device_basis())
-    elif basis.host_f64 is not None:
-        backend.set_eigenbasis(Z.T @ basis.host_f64)
-    else:
-        backend.set_eigenbasis(
-            torch.as_tensor(np.ascontiguousarray(Z.T), dtype=torch.float32,
-                            device=backend.device) @ basis.device_basis())
+    with Phase(logger, "basis"):
+        y_star = basis.project(y)
+        Xs = basis.project(X)
+        # the sweep runs in K's eigenbasis on the device (T = W·U tiles);
+        # with Z the basis is Zᵀ·U (T_j = (Z·w_j)ᵀU = w_jᵀ·(ZᵀU)), folded
+        # on the host when U is there, else on the device, so U never
+        # reaches the host
+        if Z is None:
+            backend.set_eigenbasis(basis.device_basis())
+        elif basis.host_f64 is not None:
+            backend.set_eigenbasis(Z.T @ basis.host_f64)
+        else:
+            backend.set_eigenbasis(
+                torch.as_tensor(np.ascontiguousarray(Z.T),
+                                dtype=torch.float32, device=backend.device)
+                @ basis.device_basis())
     qmax = -(-(X0.shape[1] + maxit + 1) // 8) * 8
 
-    fit = reml_core.reml_maximize_diag(d_eig, y_star, Xs)
-    best = reml_core.extbic(fit.loglik, n, p, len(selected), lam_ebic)
+    with Phase(logger, "fit0"):
+        fit = reml_core.reml_maximize_diag(d_eig, y_star, Xs)
+        best = reml_core.extbic(fit.loglik, n, p, len(selected), lam_ebic)
     extbic_path.append(best)
     loglik_path.append(fit.loglik)
     if not quiet:
@@ -2121,8 +2145,9 @@ def forward_select(
 
     for it in range(len(selected), maxit):
         with Phase(logger, "sweep", items=p):
-            s_vec, Qp, z3 = _eig_iteration_state(
-                d_eig, y_star, Xs, fit.delta, qmax)
+            with Phase(logger, "sweep_state"):
+                s_vec, Qp, z3 = _eig_iteration_state(
+                    d_eig, y_star, Xs, fit.delta, qmax)
             if sharded:
                 t, cand, _ = backend.sweep_eig(s_vec, Qp, z3, fit.sigma2_g,
                                                exclude=selected)
@@ -2136,13 +2161,14 @@ def forward_select(
             # (the collective argmax returns index 0 with max 0 here)
             break
 
-        w_col = backend.column_f64(cand)
-        x_col = Z @ w_col if Z is not None else w_col
-        X_new = np.hstack([X, x_col[:, None]])
-        Xs_new = np.hstack([Xs, basis.project(x_col)[:, None]])
-        fit_new = reml_core.reml_maximize_diag(d_eig, y_star, Xs_new)
-        ebic_new = reml_core.extbic(fit_new.loglik, n, p, len(selected) + 1,
-                                    lam_ebic)
+        with Phase(logger, "refit"):
+            w_col = backend.column_f64(cand)
+            x_col = Z @ w_col if Z is not None else w_col
+            X_new = np.hstack([X, x_col[:, None]])
+            Xs_new = np.hstack([Xs, basis.project(x_col)[:, None]])
+            fit_new = reml_core.reml_maximize_diag(d_eig, y_star, Xs_new)
+            ebic_new = reml_core.extbic(fit_new.loglik, n, p,
+                                        len(selected) + 1, lam_ebic)
         if not quiet:
             print(f"[engine] it={it} cand={cand} t_max={t[cand]:.4f} "
                   f"extBIC {best:.4f} -> {ebic_new:.4f}")
@@ -2168,7 +2194,8 @@ def forward_select(
 
     if not sharded:
         logger.event("stack", **backend.stack_info())
-    logger.close()
+    if own_log:
+        logger.close()
     return AMResult(
         indices=selected, extbic_path=extbic_path,
         outlier_stats=outlier_stats, loglik_path=loglik_path,
@@ -2189,6 +2216,7 @@ def forward_select_multi(
     keep_records: Optional[np.ndarray] = None,
     trait_names: Optional[list[str]] = None,
     device="cuda",
+    logger=None,
 ) -> list[AMResult]:
     """Lockstep multi-trait scan on the exact engine (BASELINE config 5).
 
@@ -2197,14 +2225,17 @@ def forward_select_multi(
     batched pass over the tiles. Each trait keeps its own forward-selection
     state and extBIC stopping. In a multi-process run each rank holds its
     SNP range (:class:`MultiHostTiledScan`: collective K, gathered sweeps,
-    the owning rank's columns), and every rank selects alike."""
+    the owning rank's columns), and every rank selects alike. ``logger``
+    as in :func:`forward_select`."""
     from eagleeverything_tpu_torch.utils.logging import Phase, ScanLogger
 
     ys = np.asarray(ys, dtype=np.float64)
     T, n = ys.shape
     X0 = np.asarray(X0, dtype=np.float64)
     src = _make_source(handle, keep_records)
-    logger = ScanLogger(quiet=quiet, is_host0=distributed.is_host0())
+    own_log = logger is None
+    if own_log:
+        logger = ScanLogger(quiet=quiet, is_host0=distributed.is_host0())
     p = src.p
     if n > config.host_eigh_max_n:
         # the per-trait projections below need U as a HOST f64 matrix —
@@ -2216,19 +2247,22 @@ def forward_select_multi(
             f"host_eigh_max_n={config.host_eigh_max_n} → "
             f"{8 * n * n / 1e9:.0f} GB f64). Raise config.host_eigh_max_n "
             f"explicitly if the host truly has the memory.")
-    backend = scan_backend(src, config, device, matfree=False)
+    with Phase(logger, "backend"):
+        backend = scan_backend(src, config, device, matfree=False)
     with Phase(logger, "mmt", items=p):
         K_raw = backend.compute_K()
     if n != src.n:
         raise ValueError(f"traits have {n} records but {src.n} individuals")
-    K = normalized_kernel(K_raw)
+    with Phase(logger, "k_norm"):
+        K = normalized_kernel(K_raw)
 
     with Phase(logger, "eigh", items=n):
         basis = eigh_basis(K, config, backend.device)
     d_eig, U_eig = basis.d, basis.host_f64       # n ≤ host_eigh_max_n
-    ystars = ys @ U_eig          # (T, n): row t is Uᵀ·y_t
-    Xs0 = U_eig.T @ X0
-    backend.set_eigenbasis(U_eig)
+    with Phase(logger, "basis"):
+        ystars = ys @ U_eig          # (T, n): row t is Uᵀ·y_t
+        Xs0 = U_eig.T @ X0
+        backend.set_eigenbasis(U_eig)
     qmax = -(-(X0.shape[1] + maxit + 1) // 8) * 8
 
     class _TraitState:
@@ -2245,19 +2279,21 @@ def forward_select_multi(
             self.loglik_path.append(self.fit.loglik)
             self.active = True
 
-    states = [_TraitState(t) for t in range(T)]
+    with Phase(logger, "fit0"):
+        states = [_TraitState(t) for t in range(T)]
 
     for it in range(maxit):
         active = [s for s in states if s.active]
         if not active:
             break
         B = len(active)
-        s_all = np.empty((B, n))
-        Q_all = np.empty((B, n, qmax))
-        z3_all = np.empty((B, n))
-        for b, st in enumerate(active):
-            s_all[b], Q_all[b], z3_all[b] = _eig_iteration_state(
-                d_eig, ystars[st.t], st.Xs, st.fit.delta, qmax)
+        with Phase(logger, "sweep_state"):
+            s_all = np.empty((B, n))
+            Q_all = np.empty((B, n, qmax))
+            z3_all = np.empty((B, n))
+            for b, st in enumerate(active):
+                s_all[b], Q_all[b], z3_all[b] = _eig_iteration_state(
+                    d_eig, ystars[st.t], st.Xs, st.fit.delta, qmax)
         with Phase(logger, "sweep", items=p * B):
             t_all = backend.sweep_eig_batched(
                 s_all, Q_all, z3_all,
@@ -2270,11 +2306,13 @@ def forward_select_multi(
             if t_vec[cand] <= 0.0:
                 s.active = False  # exhausted for this trait
                 continue
-            w_col = backend.column_f64(cand)
-            Xs_new = np.hstack([s.Xs, (U_eig.T @ w_col)[:, None]])
-            fit_new = reml_core.reml_maximize_diag(d_eig, ystars[s.t], Xs_new)
-            ebic_new = reml_core.extbic(
-                fit_new.loglik, n, p, len(s.selected) + 1, lam_ebic)
+            with Phase(logger, "refit"):
+                w_col = backend.column_f64(cand)
+                Xs_new = np.hstack([s.Xs, (U_eig.T @ w_col)[:, None]])
+                fit_new = reml_core.reml_maximize_diag(d_eig, ystars[s.t],
+                                                       Xs_new)
+                ebic_new = reml_core.extbic(
+                    fit_new.loglik, n, p, len(s.selected) + 1, lam_ebic)
             if ebic_new < s.best or fixit:
                 s.selected.append(cand)
                 s.Xs, s.fit, s.best = Xs_new, fit_new, ebic_new
@@ -2287,7 +2325,8 @@ def forward_select_multi(
                          extbic=float(ebic_new))
 
     logger.event("stack", **backend.stack_info())
-    logger.close()
+    if own_log:
+        logger.close()
     return [
         AMResult(
             indices=s.selected, extbic_path=s.extbic_path,
