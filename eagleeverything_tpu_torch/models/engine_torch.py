@@ -226,14 +226,42 @@ def _make_source(handle: GenoHandle, keep: Optional[np.ndarray]) -> TileSource:
     raise ValueError("GenoHandle has neither in-memory genotypes nor a store")
 
 
+def _kernel_scale(diag: np.ndarray) -> float:
+    """s0, the mean of the raw MMt's f64 diagonal (1 where it is not
+    positive): the scale both normalizations divide by."""
+    s0 = float(np.mean(diag))
+    return s0 if s0 > 0 else 1.0
+
+
 def normalized_kernel(
     K_raw: np.ndarray, Z: Optional[np.ndarray] = None
 ) -> np.ndarray:
     """Mean-diagonal normalization of the raw MMt (+ Zᵀ record-level
     transform) — the shared prologue of every scan-level entry point."""
-    s0 = float(np.mean(np.diag(K_raw)))
-    K = K_raw / (s0 if s0 > 0 else 1.0)
+    K = K_raw / _kernel_scale(np.diag(K_raw))
     return Z @ K @ Z.T if Z is not None else K
+
+
+# f64 elements of one row block of normalized_kernel_on_card's temporary
+_NORM_BLOCK = 1 << 25
+
+
+def normalized_kernel_on_card(K_raw: torch.Tensor) -> torch.Tensor:
+    """:func:`normalized_kernel` of the raw f32 MMt where it lies, as a new
+    f32 tensor: bit for bit ``f32(f64(K_raw) / s0)``, the host route's
+    kernel once uploaded. Only the diagonal reaches the host, for s0; each
+    row block is divided in f64 by s0 held on the card as a 0-dim tensor,
+    since CUDA multiplies by the reciprocal of a host scalar, which can
+    round otherwise. K_raw is only read."""
+    n = K_raw.shape[0]
+    diag = scanlog.to_host(K_raw.diagonal()).astype(np.float64)
+    s0 = torch.tensor(_kernel_scale(diag), dtype=torch.float64,
+                      device=K_raw.device)
+    K = torch.empty_like(K_raw)
+    rows = max(1, _NORM_BLOCK // n)
+    for r0 in range(0, n, rows):
+        K[r0 : r0 + rows] = K_raw[r0 : r0 + rows].double().div_(s0)
+    return K
 
 
 class EigenBasis:
@@ -299,22 +327,28 @@ EIGH_SQUARES_LIBRARY = 6
 EIGH_SQUARES_ROUTE = 2.5
 
 
-def eigh_basis(K: np.ndarray, config: EagleConfig,
-               device) -> EigenBasis:
+def eigh_basis(K, config: EagleConfig, device) -> EigenBasis:
     """Eigendecomposition of the normalized kernel: host f64 LAPACK up to
     ``config.host_eigh_max_n``; above it f32 on ``device`` (U then never
     reaches the host): ``torch.linalg.eigh`` up to DEVICE_EIGH_MAX_N,
     :func:`eigh_large` above it. Eigenvalues are clipped at 0 (K is
-    PSD)."""
+    PSD). K is a host array, which goes up in ``k_upload`` above
+    ``host_eigh_max_n``, or there already the f32 tensor on ``device``
+    (:func:`normalized_kernel_on_card`), decomposed with no upload; pass
+    it as the only reference, so that eigh_large can free it."""
     n = K.shape[0]
     if n <= config.host_eigh_max_n:
         with scanlog.Phase(None, "eigh_solve"):
             d, U = np.linalg.eigh(K)
         return EigenBasis(np.maximum(d, 0.0), U, None, device)
-    with scanlog.Phase(None, "k_upload"):
-        # handed on by pop, so that no name here keeps the upload alive
-        # (eigh_large frees K once it has read it)
-        held = [scanlog.to_device(K, device)]
+    # handed on by pop, so that no name here keeps K on the card alive
+    # (eigh_large frees K once it has read it)
+    if isinstance(K, torch.Tensor):
+        held = [K]
+    else:
+        with scanlog.Phase(None, "k_upload"):
+            held = [scanlog.to_device(K, device)]
+    del K
     with scanlog.Phase(None, "eigh_solve"):
         if n <= DEVICE_EIGH_MAX_N:
             # cuSOLVER holds the host until it has decomposed K
@@ -1721,13 +1755,18 @@ class TiledScan:
         if cache is not None:
             self._wcache = cache
 
-    def compute_K(self) -> np.ndarray:
+    def compute_K(self, on_card: bool = False):
         """The raw MMt = WᵀW (n, n), accumulated in f32 on the device over
-        the W tiles, returned as host f64."""
+        the W tiles, returned as host f64; with ``on_card`` the f32 tensor
+        itself, for a caller that keeps K on the device up to its
+        eigendecomposition (forward_select). Such a caller only reads it:
+        whoever holds the tensor holds the MMt as accumulated."""
         n = self.src.n
         K = torch.zeros((n, n), dtype=torch.float32, device=self.device)
         for _, w in self._device_tiles():
             K = kernels.mmt_accumulate(K, w)
+        if on_card:
+            return K
         with scanlog.Phase(None, "k_to_host"):
             return self._to_host(K)
 
@@ -2049,6 +2088,13 @@ def forward_select(
     n = y.shape[0]
     p = src.p
 
+    # K stays on the device from the MMt to its eigendecomposition where
+    # the host has no use for it: no Z to fold in, no ckpt_dir (the MMt
+    # cache and the eigenbasis key read K on the host), the one-process
+    # TiledScan (not sharded), and n above host_eigh_max_n, so that the
+    # device decomposes K anyway
+    on_card = (Z is None and ckpt_dir is None and not sharded
+               and src.n > config.host_eigh_max_n)
     K_raw = None
     mmt_key = None
     if ckpt_dir is not None:
@@ -2060,14 +2106,17 @@ def forward_select(
             K_raw = None
     if K_raw is None:
         with Phase(logger, "mmt", items=p):
-            K_raw = backend.compute_K()
+            K_raw = (backend.compute_K(on_card=True) if on_card
+                     else backend.compute_K())
         if ckpt_dir is not None:
             ckpt.save_mmt(ckpt_dir, mmt_key, K_raw)
     if Z is None and n != src.n:
         raise ValueError(f"trait has {n} records but {src.n} genotyped "
                          "individuals")
     with Phase(logger, "k_norm"):
-        K_eff = normalized_kernel(K_raw, Z)
+        K_eff = (normalized_kernel_on_card(K_raw) if on_card
+                 else normalized_kernel(K_raw, Z))
+    del K_raw
 
     selected: list[int] = []
     extbic_path: list[float] = []
@@ -2111,8 +2160,11 @@ def forward_select(
             basis = EigenBasis(np.maximum(cached[0], 0.0), cached[1], None,
                                backend.device)
     if basis is None:
+        # handed on by pop: eigh_large frees a K on the card once read
+        held = [K_eff]
+        del K_eff
         with Phase(logger, "eigh", items=n):
-            basis = eigh_basis(K_eff, config, backend.device)
+            basis = eigh_basis(held.pop(), config, backend.device)
         if eig_key is not None and basis.host_f64 is not None:
             ckpt.save_eig(ckpt_dir, eig_key, basis.d, basis.host_f64)
     d_eig = basis.d
