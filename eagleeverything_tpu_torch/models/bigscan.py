@@ -1444,7 +1444,11 @@ class _UnionKrylov:
     columns independently (per-column tridiagonals), so the union basis is
     mathematically identical to R separate per-trait bases — but costs one
     set of store passes instead of R. This is the fpr4am chunked-
-    permutation pattern applied to am_multi."""
+    permutation pattern applied to am_multi.
+
+    Its build is the span ``union_basis``, with the counters ``cols`` (the
+    union block's width), ``m`` (the basis depth) and ``cached`` (False
+    when the block exceeds the cache budget and no basis is built)."""
 
     def __init__(self, ctx: MatfreeContext, blocks: list[np.ndarray],
                  m: int):
@@ -1455,9 +1459,13 @@ class _UnionKrylov:
             c0 += b.shape[1]
         B = np.concatenate(blocks, axis=1)
         self.sk: Optional[ShiftedKrylov] = None
-        if ShiftedKrylov.cache_bytes(*B.shape, m) <= ctx.cache_max_bytes:
-            self.sk = ShiftedKrylov(ctx.kernel_matvec, B, m=m, reorth=True,
-                                    device_lanczos=ctx.device_lanczos)
+        cached = ShiftedKrylov.cache_bytes(*B.shape, m) <= ctx.cache_max_bytes
+        with scanlog.Phase(None, "union_basis", cols=B.shape[1], m=m,
+                           cached=cached):
+            if cached:
+                self.sk = ShiftedKrylov(ctx.kernel_matvec, B, m=m,
+                                        reorth=True,
+                                        device_lanczos=ctx.device_lanczos)
 
     def solver(self, t: int):
         """δ ↦ H(δ)⁻¹[X_t y_t] for trait slot ``t`` (None when the union
@@ -1518,6 +1526,8 @@ def forward_select_matfree_multi(
     decision value (final LL, rescored t) is polished by exact CG.
     Reference: repeated ``AM()`` calls (SURVEY.md §3.1 FPR4AM/AM notes);
     BASELINE config 5. ``logger`` as in :func:`forward_select_matfree`.
+    Each trait's δ search, in the initial fits and in each refit, is the
+    span ``trait_fit`` with the counter ``trait`` (its index in ``ys``).
     """
     from eagleeverything_tpu_torch.utils import distributed
     from eagleeverything_tpu_torch.utils.logging import Phase, ScanLogger
@@ -1604,10 +1614,11 @@ def forward_select_matfree_multi(
         with Phase(logger, "reml"):
             uk = _UnionKrylov(ctx, [reduced_block(ys[t], X0)
                                     for t in range(R)], ctx.solve_m)
-            for slot, t in enumerate(range(R)):
-                solver_t[t] = uk.solver(slot)
-                fits[t] = reml_maximize_matfree(ctx, ys[t], X_t[t],
-                                                solver=solver_t[t])
+            for t in range(R):
+                solver_t[t] = uk.solver(t)
+                with Phase(logger, "trait_fit", trait=t):
+                    fits[t] = reml_maximize_matfree(ctx, ys[t], X_t[t],
+                                                    solver=solver_t[t])
                 best[t] = reml_core.extbic(fits[t].loglik, n, p, 0,
                                            lam_ebic)
                 extbic_path[t].append(best[t])
@@ -1665,9 +1676,12 @@ def forward_select_matfree_multi(
                 ctx, [reduced_block(ys[t], Xnew[t]) for t in active],
                 m_refit)
             solvers = [uk.solver(slot) for slot in range(len(active))]
-            fits_new = [reml_maximize_matfree(
-                ctx, ys[t], Xnew[t], delta_hint=fits[t].delta, solver=sv)
-                for t, sv in zip(active, solvers)]
+            fits_new = []
+            for t, sv in zip(active, solvers):
+                with Phase(logger, "trait_fit", trait=t):
+                    fits_new.append(reml_maximize_matfree(
+                        ctx, ys[t], Xnew[t], delta_hint=fits[t].delta,
+                        solver=sv))
         still = []
         for t, sv, fit_new in zip(active, solvers, fits_new):
             ebic_new = reml_core.extbic(fit_new.loglik, n, p,

@@ -1659,15 +1659,18 @@ class TiledScan:
         padded to one multiple-of-8 q (zero columns are inert). Traits are
         sub-batched so one launch stays within the columns the stack's
         gate reserved (MULTI_STAT_COLS, or KRYLOV_COLS when the stack
-        stays on the card only at that width or streams).
+        stays on the card only at that width or streams). Each launch adds
+        its width to the open span's counter ``cols``, its traits to
+        ``traits`` and 1 to ``launches``.
         Returns per-trait (ahat, U, diag, proj)."""
         R = len(A_list)
-        if R == 1:
-            return [self.matfree_stat_rows(A_list[0], q_list[0],
-                                           Minv_list[0])]
         r = A_list[0].shape[1] - 1 - q_list[0]
         q8 = -(-max(max(q_list), 1) // 8) * 8
         c = 1 + q8 + r
+        if R == 1:
+            scanlog.count(cols=c, traits=1, launches=1)
+            return [self.matfree_stat_rows(A_list[0], q_list[0],
+                                           Minv_list[0])]
         if R * c > self.plan.stat_cols:
             per = max(1, self.plan.stat_cols // c)
             out = []
@@ -1677,6 +1680,7 @@ class TiledScan:
                     Minv_list[s : s + per]))
             return out
         self.stack_passes += 1
+        scanlog.count(cols=R * c, traits=R, launches=1)
         A_cat = np.zeros((A_list[0].shape[0], R * c))
         M_cat = np.zeros((R, q8, q8))
         for t, (A, qt) in enumerate(zip(A_list, q_list)):

@@ -19,7 +19,9 @@ innermost open span with the seconds the host waited and the bytes moved,
 so a span's wall splits into host work (``wallclock_s - wait_s`` less its
 children) and waiting on the card. While ``torch.profiler`` (or
 ``emit_nvtx``) is recording, each span also opens a profiler range
-``phase::<name>`` on the trace's clock.
+``phase::<name>`` on the trace's clock. A span may carry counters of
+the work it did, given when it opens or added inside it by :func:`count`;
+they are fields of its ``phase`` event.
 """
 
 from __future__ import annotations
@@ -109,14 +111,15 @@ class Phase:
     ``id``, its ``parent`` span's id (None for a root), the ``call`` id,
     and the seconds and bytes of the host↔card copies it made itself
     (``wait_s``, ``h2d_bytes``, ``d2h_bytes``; a child's are the
-    child's). ``logger`` None logs into the innermost open span's
-    logger."""
+    child's), and its ``counters``. ``logger`` None logs into the
+    innermost open span's logger."""
 
     def __init__(self, logger: Optional[ScanLogger] = None, name: str = "",
-                 items: Optional[int] = None):
+                 items: Optional[int] = None, **counters):
         self.logger = logger
         self.name = name
         self.items = items
+        self.counters = counters
 
     def __enter__(self):
         up = _OPEN.get()
@@ -149,6 +152,7 @@ class Phase:
                       parent=self.parent, call=lg.call,
                       wait_s=round(min(self.wait_s, dt), 6),
                       h2d_bytes=self.h2d_bytes, d2h_bytes=self.d2h_bytes)
+        fields.update(self.counters)
         lg.event("phase", **fields)
         return False
 
@@ -166,6 +170,16 @@ def on_card(fn, *args, h2d: int = 0, d2h: int = 0):
     span.h2d_bytes += h2d
     span.d2h_bytes += d2h
     return out
+
+
+def count(**counters) -> None:
+    """Adds each of ``counters`` to the innermost open span's counter of
+    its name (from 0)."""
+    span = _OPEN.get()
+    if span is None:
+        return
+    for k, v in counters.items():
+        span.counters[k] = span.counters.get(k, 0) + v
 
 
 def to_host(t):
