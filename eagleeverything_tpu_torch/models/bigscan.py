@@ -262,6 +262,13 @@ class ShiftedKrylov:
     def cache_bytes(n: int, r: int, m: int) -> int:
         return min(m, n) * n * r * 8
 
+    @staticmethod
+    def device_bytes(n: int, r: int, m: int) -> int:
+        """The bytes of the basis the device Lanczos holds: (r_pad, m, n)
+        f32, r zero-padded to a multiple of 8
+        (engine_torch.TiledScan.device_lanczos)."""
+        return -(-r // 8) * 8 * min(m, n) * n * 4
+
     def _apply(self, fvals: np.ndarray,
                sl: slice = slice(None)) -> np.ndarray:
         """f(K+δI)·Z from eigen-coordinate values fvals (m, width) for
@@ -367,8 +374,10 @@ class MatfreeContext:
     # the LL is flat (dLL/dδ = 0), so half the depth costs ~nothing in
     # decision accuracy and halves the dominant per-iteration store work
     solve_m_refit: int = 64
-    # the budget counts the reference's host f64 basis (V is m·n·r f64),
-    # so the port takes the same cache and chunking decisions
+    # the budget counts a basis as the reference's host f64 one (V is
+    # m·n·r f64), so the port takes the same cache and chunking decisions,
+    # save for the sweep's probe basis: it is counted where it is held
+    # (_probe_basis)
     cache_max_bytes: int = 2 << 30
     # device-resident CG: (B, delta, tol, maxiter, x0=) -> X
     # (engine_torch.TiledScan.device_cg with s0 bound) — the X/R/P block
@@ -444,19 +453,47 @@ class MatfreeContext:
         np.add.at(out, self.z_idx, A)
         return out
 
+    def _probe_basis(self, probes: np.ndarray) -> Optional[ShiftedKrylov]:
+        """The cached Krylov basis of the probe block, built on first use
+        (and again for a different block: the cache is held to the block's
+        values, not its shape); None when it is over the budget, which
+        counts the basis where it is held: the card's f32 basis where the
+        device Lanczos is wired, else the host recurrence's f64 one (the
+        reference's count). The innermost open span counts ``cached``: 1
+        when the basis was already built, 0 when this call built it."""
+        size = (ShiftedKrylov.cache_bytes if self.device_lanczos is None
+                else ShiftedKrylov.device_bytes)
+        if size(*probes.shape, self.lanczos_m) > self.cache_max_bytes:
+            return None
+        if self._isqrt_sk is not None \
+                and self._isqrt_probes_ref.shape == probes.shape \
+                and np.array_equal(self._isqrt_probes_ref, probes):
+            scanlog.count(cached=1)
+            return self._isqrt_sk
+        scanlog.count(cached=0)
+        self._isqrt_sk = ShiftedKrylov(self.kernel_matvec, probes,
+                                       self.lanczos_m,
+                                       device_lanczos=self.device_lanczos)
+        self._isqrt_probes_ref = probes
+        return self._isqrt_sk
+
     def isqrt_probes_shifts(self, deltas, probes: np.ndarray
                             ) -> list[np.ndarray]:
         """(K+δ_t·I)^(-1/2)·probes for each shift δ_t: the cached probe
         basis when it fits the budget (:meth:`isqrt_probes`); over it, one
         uncached device Lanczos serves every shift, so R traits or
-        permutations cost one set of stack passes, not R. Without the
-        device hook each shift runs the host recurrence (a host basis is
-        what the budget bounds)."""
-        if self.device_lanczos is None or ShiftedKrylov.cache_bytes(
-                *probes.shape, self.lanczos_m) <= self.cache_max_bytes:
-            return [self.isqrt_probes(d, probes) for d in deltas]
-        sk = ShiftedKrylov(self.kernel_matvec, probes, self.lanczos_m,
-                           device_lanczos=self.device_lanczos)
+        permutations cost one set of stack passes, not R (the span counts
+        ``cached`` 0). Without the device hook each shift runs the host
+        recurrence (a host basis is what the budget bounds)."""
+        sk = self._probe_basis(probes)
+        if sk is None:
+            scanlog.count(cached=0)
+            if self.device_lanczos is None:
+                return [lanczos_isqrt_apply(self.h_matvec(d), probes,
+                                            m=self.lanczos_m)
+                        for d in deltas]
+            sk = ShiftedKrylov(self.kernel_matvec, probes, self.lanczos_m,
+                               device_lanczos=self.device_lanczos)
         return [sk.isqrt(d) for d in deltas]
 
     def logdet(self, delta: float) -> float:
@@ -469,28 +506,15 @@ class MatfreeContext:
         return self._logdet_sk.logdet(delta)
 
     def isqrt_probes(self, delta: float, probes: np.ndarray) -> np.ndarray:
-        """(K+δI)^(-1/2)·probes — cached when the probe block fits the
-        budget (probes are fixed across iterations; only δ moves). The
-        cache is validated against the ACTUAL probe block, not just its
-        shape — a different block rebuilds it."""
-        if ShiftedKrylov.cache_bytes(*probes.shape, self.lanczos_m) \
-                > self.cache_max_bytes:
-            # over the budget nothing is cached: each call runs its own
-            # Lanczos — on the device where the hook exists (the basis is
-            # f32 there, half the counted bytes, and freed on return),
-            # else the host recurrence
-            if self.device_lanczos is None:
-                return lanczos_isqrt_apply(self.h_matvec(delta), probes,
-                                           m=self.lanczos_m)
+        """(K+δI)^(-1/2)·probes — from the cached probe basis when it fits
+        the budget (probes are fixed across sweeps; only δ moves), else
+        from a Lanczos of its own (:meth:`isqrt_probes_shifts`): on the
+        device where the hook exists, its basis freed on return, else the
+        host recurrence."""
+        sk = self._probe_basis(probes)
+        if sk is None:
             return self.isqrt_probes_shifts([delta], probes)[0]
-        if self._isqrt_sk is None or self._isqrt_probes_ref is None \
-                or self._isqrt_probes_ref.shape != probes.shape \
-                or not np.array_equal(self._isqrt_probes_ref, probes):
-            self._isqrt_sk = ShiftedKrylov(
-                self.kernel_matvec, probes, self.lanczos_m,
-                device_lanczos=self.device_lanczos)
-            self._isqrt_probes_ref = probes
-        return self._isqrt_sk.isqrt(delta)
+        return sk.isqrt(delta)
 
 
 def _ll_from_solution(y, X, Sol, logdetH):

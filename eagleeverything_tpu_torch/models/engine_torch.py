@@ -942,7 +942,9 @@ def stack_reserve(n: int, p: int, config: EagleConfig, sms: int,
         (``device_lanczos``): one basis that ShiftedKrylov caches (its f64
         count is held to ``matfree_cache_gb``, so its f32 to half of it),
         and the probe basis of ``isqrt_probes`` (``matfree_diag_probes``
-        columns, ``matfree_lanczos_m`` deep), cached or not;
+        columns, ``matfree_lanczos_m`` deep), whose f32 count is held to
+        ``matfree_cache_gb`` itself: kept from the first sweep to the
+        call's end when it fits, else built and freed every sweep;
       - eight (n, KRYLOV_COLS) f32 blocks: the CG's X, R, P and H·P with
         the step's temporaries, the Lanczos V, V_prev and W;
       - K1's operand at ``stat_cols`` f32 columns and its three bf16

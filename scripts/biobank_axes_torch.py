@@ -351,12 +351,14 @@ def _read_events(path: str) -> list[dict]:
 
 
 def krylov_cache(n: int, q_max: int, budget: int, protocol: dict) -> dict:
-    """Whether the Krylov cache budget binds: the f64 bytes it counts for
-    the [X y] solve basis at the scan's widest X (``q_max`` columns), at
-    the first fit's depth and the refits', and for the sweep's probe
-    basis (MatfreeContext.isqrt_probes); over the budget a basis is not
-    cached (the [X y] fit solves by CG at every δ, the probe basis is
-    rebuilt at each call)."""
+    """Whether the Krylov cache budget binds, at the bytes the scan counts
+    against it: the f64 count of the [X y] solve basis at the scan's
+    widest X (``q_max`` columns), at the first fit's depth and the
+    refits', and the f32 count of the sweep's probe basis as the card
+    holds it (MatfreeContext._probe_basis: the n axis has no Zmat, so
+    the device Lanczos is always wired); over the budget a basis is
+    not cached (the [X y] fit solves by CG at every δ, the probe basis is
+    rebuilt at each sweep)."""
     from eagleeverything_tpu_torch.models.bigscan import ShiftedKrylov
     sizes = {
         "solve_basis": ShiftedKrylov.cache_bytes(n, q_max + 1,
@@ -364,8 +366,8 @@ def krylov_cache(n: int, q_max: int, budget: int, protocol: dict) -> dict:
         "refit_basis": ShiftedKrylov.cache_bytes(
             n, q_max + 1, min(protocol["solve_m"],
                               max(protocol["solve_m_refit"], 16))),
-        "probe_basis": ShiftedKrylov.cache_bytes(n, protocol["diag_probes"],
-                                                 protocol["lanczos_m"])}
+        "probe_basis": ShiftedKrylov.device_bytes(n, protocol["diag_probes"],
+                                                  protocol["lanczos_m"])}
     return {"budget_bytes": int(budget),
             **{k + "_bytes": int(v) for k, v in sizes.items()},
             **{k + "_binds": bool(v > budget) for k, v in sizes.items()}}

@@ -170,9 +170,12 @@ def test_run_n_selects_what_the_jax_engine_selects(n_cohorts, tmp_path,
     both with the recorded protocol and a Krylov cache budget that binds
     as am()'s default budget does at n = 500 000: the [X y] solve bases
     fit it and are cached, the sweep's probe basis does not and is
-    rebuilt at each call."""
+    rebuilt at each call. The probe block is 32 columns wide, not the
+    recorded 16, so that its basis binds at the size the port counts it
+    (f32 on the device: 6.3 MB here, the solve bases' f64 at most
+    3.9 MB, the budget 4.2 MB)."""
     port, jax = n_cohorts
-    protocol = dict(axes.N_PROTOCOL, cache_max_bytes=1 << 22)
+    protocol = dict(axes.N_PROTOCOL, diag_probes=32, cache_max_bytes=1 << 22)
     built, uncached = [], []
 
     class CountingKrylov(bigscan.ShiftedKrylov):
