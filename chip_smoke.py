@@ -554,8 +554,8 @@ class IterationTrace:
     """For the length of a ``with`` block, traces one forward-selection
     iteration of the matrix-free scan with ``torch.profiler`` (CPU and CUDA
     activity): the profiler starts when the sweep of iteration ``it``
-    begins (bigscan.score_sweep_matfree, looked up through the module at
-    call time) and stops when the refit after it (the next
+    begins (bigscan.score_sweep_matfree_multi, looked up through the
+    module at call time) and stops when the refit after it (the next
     reml_maximize_matfree with a delta hint) returns. The Chrome trace is
     written to ``path``; ``wall_s`` is the host wall of the traced window,
     which carries the profiler's own cost."""
@@ -584,7 +584,7 @@ class IterationTrace:
         self.prof.export_chrome_trace(self.path)
 
     def __enter__(self):
-        self._sweep = self.bigscan.score_sweep_matfree
+        self._sweep = self.bigscan.score_sweep_matfree_multi
         self._reml = self.bigscan.reml_maximize_matfree
 
         def sweep(*a, **k):
@@ -599,12 +599,12 @@ class IterationTrace:
                 self._stop()
             return out
 
-        self.bigscan.score_sweep_matfree = sweep
+        self.bigscan.score_sweep_matfree_multi = sweep
         self.bigscan.reml_maximize_matfree = reml
         return self
 
     def __exit__(self, *exc):
-        self.bigscan.score_sweep_matfree = self._sweep
+        self.bigscan.score_sweep_matfree_multi = self._sweep
         self.bigscan.reml_maximize_matfree = self._reml
         if self.active:
             self._stop()

@@ -44,6 +44,23 @@ def _call_log(name: str, quiet: bool, log_jsonl: Optional[str]):
         logger.close()
 
 
+def _matfree_kw(config: EagleConfig, backend, maxit: int, fixit: bool,
+                lam: float, quiet: bool, logger, ckpt_dir: Optional[str],
+                resume: bool) -> dict:
+    """The matrix-free AM loop's keywords from a call's arguments and
+    ``config``'s ``matfree_*`` fields (``am`` and ``am_multi`` alike)."""
+    return dict(
+        maxit=maxit, fixit=fixit, lam_ebic=lam, quiet=quiet, logger=logger,
+        probes=config.matfree_probes,
+        lanczos_m=config.matfree_lanczos_m,
+        diag_probes=config.matfree_diag_probes,
+        exact_topk=config.matfree_exact_topk,
+        solve_m=config.matfree_solve_m,
+        solve_m_refit=config.matfree_solve_m_refit,
+        cache_max_bytes=int(config.matfree_cache_gb * 1e9),
+        column_f64=backend.column_f64, ckpt_dir=ckpt_dir, resume=resume)
+
+
 def am(
     trait: str,
     geno: Union[GenoHandle, np.ndarray],
@@ -136,18 +153,9 @@ def am(
                                                 prep.keep_individuals)
                 backend = engine_torch.scan_backend(src, config, dev)
             res = bigscan.forward_select_matfree(
-                prep.y, prep.X0, backend, maxit=maxit, fixit=fixit,
-                lam_ebic=lam, quiet=quiet, Z=prep.Z, logger=logger,
-                probes=config.matfree_probes,
-                lanczos_m=config.matfree_lanczos_m,
-                diag_probes=config.matfree_diag_probes,
-                exact_topk=config.matfree_exact_topk,
-                solve_m=config.matfree_solve_m,
-                solve_m_refit=config.matfree_solve_m_refit,
-                cache_max_bytes=int(config.matfree_cache_gb * 1e9),
-                column_f64=backend.column_f64,
-                ckpt_dir=ckpt_dir, resume=resume,
-            )
+                prep.y, prep.X0, backend, Z=prep.Z,
+                **_matfree_kw(config, backend, maxit, fixit, lam, quiet,
+                              logger, ckpt_dir, resume))
         else:
             raise ValueError(f"unknown engine {engine!r}")
 
@@ -225,18 +233,9 @@ def am_multi(
                 backend = engine_torch.scan_backend(
                     engine_torch._make_source(handle, keep_idx), config, dev)
             results = bigscan.forward_select_matfree_multi(
-                ys, X, backend,
-                maxit=maxit, fixit=fixit, lam_ebic=lam, quiet=quiet,
-                probes=config.matfree_probes,
-                lanczos_m=config.matfree_lanczos_m,
-                diag_probes=config.matfree_diag_probes,
-                exact_topk=config.matfree_exact_topk,
-                solve_m=config.matfree_solve_m,
-                solve_m_refit=config.matfree_solve_m_refit,
-                cache_max_bytes=int(config.matfree_cache_gb * 1e9),
-                column_f64=backend.column_f64, trait_names=list(traits),
-                logger=logger, ckpt_dir=ckpt_dir, resume=resume,
-            )
+                ys, X, backend, trait_names=list(traits),
+                **_matfree_kw(config, backend, maxit, fixit, lam, quiet,
+                              logger, ckpt_dir, resume))
         elif engine == "jax":
             results = engine_torch.forward_select_multi(
                 ys, X, handle,

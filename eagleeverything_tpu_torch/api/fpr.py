@@ -178,8 +178,8 @@ def _matfree_lam_crits(prep, src, backend, numreps: int, seed: int,
     - the candidate REML refits share ONE union Krylov basis over the
       per-rep [X w_cand y] blocks (the am_multi refit pattern).
 
-    Chunk size is capped by the basis cache budget. Zmat designs fall
-    back to per-rep serial sweeps (the batched sweep is Z-free)."""
+    Chunk size is capped by the basis cache budget. A Zmat design rides
+    the same batched sweep (the Zmat is shared by every permutation)."""
     import scipy.optimize as _opt
 
     from eagleeverything_tpu_torch.models import bigscan
@@ -251,19 +251,14 @@ def _matfree_lam_crits(prep, src, backend, numreps: int, seed: int,
                                               sigma2_e=d0 * s2g))
             hint = d0
 
-        # the chunk's sweeps: ONE batched pass (Z-free designs); the
-        # chunk basis warm-starts every rep's [X y] solve at its δ̂
-        if Z is None:
-            sol0s = [sk.solve(fits0[rep].delta)[:, cols(rep)]
-                     for rep in range(R)]
-            sweeps = bigscan.score_sweep_matfree_multi(
-                ctx, backend, [Y[:, rep] for rep in range(R)],
-                [X0] * R, fits0, column_f64=column_f64, sol0s=sol0s)
-            cands = [cand for _, cand, _ in sweeps]
-        else:
-            cands = [bigscan.score_sweep_matfree(
-                ctx, backend, Y[:, rep], X0, fits0[rep],
-                column_f64=column_f64, Z=Z)[1] for rep in range(R)]
+        # the chunk's sweeps: ONE batched pass; the chunk basis
+        # warm-starts every rep's [X y] solve at its δ̂
+        sweeps = bigscan.score_sweep_matfree_multi(
+            ctx, backend, [Y[:, rep] for rep in range(R)], [X0] * R, fits0,
+            column_f64=column_f64, Z=Z,
+            sol0s=[sk.solve(fits0[rep].delta)[:, cols(rep)]
+                   for rep in range(R)])
+        cands = [cand for _, cand, _ in sweeps]
 
         # the chunk's candidate refits: one union Krylov basis over the
         # per-rep [X w_cand y] blocks (am_multi's refit pattern)

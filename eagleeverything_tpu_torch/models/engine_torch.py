@@ -779,17 +779,6 @@ def _pad_cols8(B: np.ndarray) -> np.ndarray:
     return np.pad(B, ((0, 0), (0, r_pad - r)))
 
 
-def _stats_from_D(D: torch.Tensor, Minv: torch.Tensor, q: int) -> torch.Tensor:
-    """The matfree sweep's per-SNP statistics from the dot block D
-    ((p, 1+q+r), on the device): (p, q+3) rows [â, u, diag, proj]."""
-    ahat = D[:, :1]
-    U = D[:, 1 : 1 + q]
-    WHZ = D[:, 1 + q :]
-    diag = torch.sum(WHZ * WHZ, dim=1, keepdim=True) / WHZ.shape[1]
-    proj = torch.einsum("jq,qr,jr->j", U, Minv, U)[:, None]
-    return torch.cat([ahat, U, diag, proj], dim=1)
-
-
 def _stats_from_D_multi(D: torch.Tensor, Minv: torch.Tensor, q: int,
                         R: int) -> torch.Tensor:
     """R traits' statistics from one wide dot block D ((p, R·(1+q+r)), on
@@ -809,23 +798,6 @@ def _stats_from_D_multi(D: torch.Tensor, Minv: torch.Tensor, q: int,
 # columns of one matfree_stat_rows_multi pass (the reference's default
 # width cap): R traits' blocks are sub-batched under it
 MULTI_STAT_COLS = 640
-
-
-def stack_from_jax(Wp: np.ndarray, means: np.ndarray, n: int, p: int,
-                   device) -> tuple[torch.Tensor, torch.Tensor]:
-    """The JAX package's resident stack and means, as numpy arrays (int32
-    (p_pad, nw_pad) padded to its Pallas blocks, f32 (p_pad, 1)), → this
-    package's stack (p, ⌈⌈n/4⌉/4⌉) and means (p,) on ``device``. Both
-    packages fill bytes past a row's ⌈n/4⌉ with 0x55, so the words agree."""
-    nw = packed.words_per_row(n)
-    Wp = np.asarray(Wp)
-    if Wp.dtype != np.int32 or Wp.shape[0] < p or Wp.shape[1] < nw:
-        raise ValueError(f"expected an int32 stack of at least ({p}, {nw}), "
-                         f"got {Wp.dtype} {Wp.shape}")
-    W_t = torch.from_numpy(np.array(Wp[:p, :nw])).to(device)
-    m_t = torch.from_numpy(
-        np.array(np.asarray(means, np.float32).reshape(-1)[:p])).to(device)
-    return W_t, m_t
 
 
 def _kernel_apply(kv, n: int, V: torch.Tensor,
@@ -1630,23 +1602,9 @@ class TiledScan:
         self, A: np.ndarray, q: int, XtHiX_inv: np.ndarray
     ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
         """Per-SNP matfree sweep statistics (â, u, Hutchinson diag, proj)
-        for A = [P̃y, H⁻¹X, H^(-1/2)·probes]: one packed_dot a chunk, whose
-        probe block is reduced ON THE DEVICE, so (p, q+3) comes back, not
-        (p, 1+q+r). q is padded to a multiple of 8 as in the reference
-        (zero u/Minv columns are inert)."""
-        self.stack_passes += 1
-        r = A.shape[1] - 1 - q
-        q8 = -(-max(q, 1) // 8) * 8
-        A_pad = np.zeros((A.shape[0], 1 + q8 + r))
-        A_pad[:, 0] = A[:, 0]
-        A_pad[:, 1 : 1 + q] = A[:, 1 : 1 + q]
-        A_pad[:, 1 + q8 :] = A[:, 1 + q :]
-        M_pad = np.zeros((q8, q8))
-        M_pad[:q, :q] = XtHiX_inv
-        A_d, M_d = self._to_device(A_pad), self._to_device(M_pad)
-        out = self._to_host(self._by_rows(lambda m, Wc: _stats_from_D(
-            packed.packed_dot(Wc, A_d, m, self.src.n), M_d, q8)))
-        return (out[:, 0], out[:, 1 : 1 + q], out[:, 1 + q8], out[:, 2 + q8])
+        for A = [P̃y, H⁻¹X, H^(-1/2)·probes]: the one-trait case of
+        :meth:`matfree_stat_rows_multi`."""
+        return self.matfree_stat_rows_multi([A], [q], [XtHiX_inv])[0]
 
     def matfree_stat_rows_multi(
         self, A_list: list[np.ndarray], q_list: list[int],
@@ -1663,17 +1621,14 @@ class TiledScan:
         gate reserved (MULTI_STAT_COLS, or KRYLOV_COLS when the stack
         stays on the card only at that width or streams). Each launch adds
         its width to the open span's counter ``cols``, its traits to
-        ``traits`` and 1 to ``launches``.
+        ``traits`` and 1 to ``launches``. The probe block is reduced ON
+        THE DEVICE, so (p, q+3) comes back a trait, not (p, 1+q+r).
         Returns per-trait (ahat, U, diag, proj)."""
         R = len(A_list)
         r = A_list[0].shape[1] - 1 - q_list[0]
         q8 = -(-max(max(q_list), 1) // 8) * 8
         c = 1 + q8 + r
-        if R == 1:
-            scanlog.count(cols=c, traits=1, launches=1)
-            return [self.matfree_stat_rows(A_list[0], q_list[0],
-                                           Minv_list[0])]
-        if R * c > self.plan.stat_cols:
+        if R > 1 and R * c > self.plan.stat_cols:
             per = max(1, self.plan.stat_cols // c)
             out = []
             for s in range(0, R, per):

@@ -85,10 +85,55 @@ def load_multi_scan_state(ckpt_dir: str) -> Optional[dict]:
         return json.load(f)
 
 
-def clear_scan_state(ckpt_dir: str) -> None:
-    path = os.path.join(ckpt_dir, _STATE)
-    if os.path.exists(path):
-        os.remove(path)
+def save_trait_states(ckpt_dir: str, states: list[dict], meta: dict,
+                      single: bool = False) -> None:
+    """The matrix-free AM loop's state (bigscan.forward_select_matfree_multi:
+    one entry a trait as :func:`save_multi_scan_state` holds it, ``meta``
+    n/p/lam_ebic/it_next) into ``multi_scan_state.json``; with ``single``
+    into am()'s one-trait ``scan_state.json``, which has no place for a
+    stopped trait, so it is written only while its trait is active (on
+    an accepted marker) and keeps the last accepted state after."""
+    if not single:
+        save_multi_scan_state(ckpt_dir, states, meta)
+        return
+    (st,) = states
+    if st["active"]:
+        save_scan_state(
+            ckpt_dir, st["selected"], st["extbic_path"], st["loglik_path"],
+            st["delta"], st["sigma2_g"], st["sigma2_e"],
+            meta={"trait_n": meta["n"], "p": meta["p"],
+                  "lam_ebic": meta["lam_ebic"],
+                  "trait_sum": st["fingerprint"][0],
+                  "trait_sq": st["fingerprint"][1], "fit_exact": True})
+
+
+def load_trait_states(ckpt_dir: str, single: bool = False
+                      ) -> Optional[dict]:
+    """What :func:`save_trait_states` wrote, in the multi-trait file's
+    form ({"states": [...], "meta": {n, p, lam_ebic, it_next}}); None
+    when there is none. A one-trait file resumes its trait active at the
+    iteration after its last marker. One with no trait fingerprint (the
+    exact engine's) is passed over with a warning, so the scan starts
+    fresh; one without its exact fit is refused."""
+    if not single:
+        return load_multi_scan_state(ckpt_dir)
+    st = load_scan_state(ckpt_dir)
+    if st is None:
+        return None
+    m = st.get("meta", {})
+    if "trait_sum" not in m:
+        import warnings
+        warnings.warn("matfree checkpoint has no trait fingerprint (another "
+                      "engine's) — starting fresh", stacklevel=2)
+        return None
+    if not m.get("fit_exact"):
+        raise ValueError("refusing to resume: matfree checkpoint holds no "
+                         "exact fit (fit_exact)")
+    return {"states": [dict(st, active=True, fingerprint=[
+                m.get("trait_sum"), m.get("trait_sq")])],
+            "meta": {"n": m.get("trait_n"), "p": m.get("p"),
+                     "lam_ebic": m.get("lam_ebic"),
+                     "it_next": len(st["selected"])}}
 
 
 # ---------------------------------------------------------------------------

@@ -422,10 +422,10 @@ def pallas_bench(dir: str, device="cuda", out: str = "") -> dict:
     # the stat rows from the plain K1 on the unpadded A (the kernel's pass
     # pads q to 8 with inert zero columns)
     out_plain, st_plain_s = timed(lambda: scan._to_host(
-        engine_torch._stats_from_D(
+        engine_torch._stats_from_D_multi(
             packed.packed_dot_plain(scan._pstack, scan._to_device(A),
                                     scan._pmeans, n),
-            scan._to_device(Minv), 1)))
+            scan._to_device(Minv[None]), 1, 1)))
     rows_plain = (out_plain[:, 0], out_plain[:, 1:2], out_plain[:, 2],
                   out_plain[:, 3])
     result = {

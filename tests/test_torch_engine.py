@@ -24,6 +24,7 @@ from eagleeverything_tpu_torch.io.genostore import (  # noqa: E402
     GenotypeStore)
 from eagleeverything_tpu_torch.models import engine_torch  # noqa: E402
 from eagleeverything_tpu_torch.utils.config import EagleConfig  # noqa: E402
+from jax_stack import stack_from_jax  # noqa: E402
 
 NP_, PP_ = 256, 3000
 
@@ -56,7 +57,7 @@ def test_stack_matches_jax_stack(scans):
     port, jp, _ = scans
     Wp = np.asarray(jp._packed_stack())
     means = np.asarray(jp._pmeans)
-    Wt, mt = engine_torch.stack_from_jax(Wp, means, NP_, PP_, "cpu")
+    Wt, mt = stack_from_jax(Wp, means, NP_, PP_, "cpu")
     np.testing.assert_array_equal(port._packed_stack().numpy(), Wt.numpy())
     np.testing.assert_array_equal(port._pmeans.numpy(), mt.numpy())
 

@@ -2,7 +2,8 @@
 JAX package's, on the CPU: the device-resident Lanczos, Zmat designs
 (record-space CG and Lanczos, ``am``/``summary_am`` with a one-hot and a
 weighted Zmat), the multi-trait pieces (``matfree_stat_rows_multi``,
-``solve_block_shifts``, ``score_sweep_matfree_multi``, ``am_multi``) and
+``solve_block_shifts``, ``score_sweep_matfree_multi`` with and without a
+Zmat, ``am_multi``), the one-trait loop's checkpoint files, and
 ``fpr4am`` on the matrix-free engine.
 
 The same seeded numpy inputs go through both packages. The JAX backend of
@@ -16,6 +17,8 @@ summary (tests/test_torch_api.py)."""
 
 import contextlib
 import io
+import json
+import os
 import re
 
 import numpy as np
@@ -35,6 +38,7 @@ from eagleeverything_tpu.utils.config import (  # noqa: E402
 
 import eagleeverything_tpu_torch as port  # noqa: E402
 from eagleeverything_tpu_torch.models import bigscan, engine_torch  # noqa: E402
+from eagleeverything_tpu_torch.utils import checkpoint as ckpt  # noqa: E402
 from eagleeverything_tpu_torch.utils.config import EagleConfig  # noqa: E402
 
 N, P = 200, 1500
@@ -391,6 +395,129 @@ def test_score_sweep_matfree_multi_matches_jax(multi):
         assert cs == cg_
 
 
+@pytest.mark.parametrize("R", [1, 2])
+@pytest.mark.parametrize("kind", ["onehot", "weighted"])
+def test_score_sweep_matfree_multi_zmat_matches_jax(zdesign, kind, R):
+    """The lockstep sweep with one Zmat shared by its traits (a one-hot Z
+    on the device hooks, a weighted one on the host CG), at R = 1 and 2,
+    against the JAX package's one-trait sweep a trait on the JAX fits:
+    the same candidates, the rescored t at rtol 1e-4."""
+    sim, y, Zs = zdesign
+    Z = Zs[kind]
+    tp = engine_torch.TiledScan(engine_torch.DenseTileSource(sim.geno),
+                                EagleConfig(), "cpu")
+    jp = engine_jax.TiledScan(engine_jax.DenseTileSource(sim.geno),
+                              JaxConfig())
+    ct = bigscan.make_context(tp, 160, Z=Z, probes=16)
+    cj = jbig.make_context(jp, 160, Z=Z, probes=16)
+    col = tp.column_f64
+    X0 = np.ones((160, 1))
+    ys = [y, np.tanh(y) + 0.2 * np.random.default_rng(4).standard_normal(160)]
+    Xs = [X0, np.column_stack([X0, Z @ col(7)])]
+    excludes = [[], [7]]
+    fits = [jbig.reml_maximize_matfree(cj, ys[t], Xs[t]) for t in range(R)]
+    kw = dict(diag_probes=96, exact_topk=16, column_f64=col, Z=Z)
+    got = bigscan.score_sweep_matfree_multi(ct, tp, ys[:R], Xs[:R], fits,
+                                            excludes=excludes[:R], **kw)
+    assert len(got) == R
+    for t in range(R):
+        tg, cg_, ig = got[t]
+        tr, cr, ir = jbig.score_sweep_matfree(cj, jp, ys[t], Xs[t], fits[t],
+                                              exclude=excludes[t], **kw)
+        assert cg_ == cr and not ig["exhausted"]
+        np.testing.assert_allclose(tg[cr], tr[cr], rtol=1e-4)
+        assert tg[excludes[t]].sum() == 0.0
+
+
+# am()'s scan_state.json layout, as every build of the port writes it
+_STATE_KEYS = {"version", "selected", "extbic_path", "loglik_path",
+               "delta", "sigma2_g", "sigma2_e", "meta"}
+_META_KEYS = {"trait_n", "p", "lam_ebic", "trait_sum", "trait_sq",
+              "fit_exact"}
+
+
+def test_am_matfree_checkpoint_keeps_its_files(multi, tmp_path):
+    """am() on the matrix-free engine writes its own checkpoint,
+    scan_state.json with its key set and the accepted fit, and the
+    sweep's stage-0 cache beside it; never am_multi's file."""
+    sim1, pheno = multi
+    d = str(tmp_path / "ck")
+    res = port.am("y1", sim1.geno, pheno, maxit=2, engine="matfree",
+                  device="cpu", ckpt_dir=d)
+    assert len(res.indices) >= 1
+    assert sorted(os.listdir(d)) == ["scan_state.json", "sweep_h0.npz"]
+    with open(os.path.join(d, "scan_state.json")) as f:
+        st = json.load(f)
+    assert set(st) == _STATE_KEYS and set(st["meta"]) == _META_KEYS
+    assert st["selected"] == res.indices and st["meta"]["fit_exact"]
+    assert (st["meta"]["trait_n"], st["meta"]["p"]) == (130, 900)
+    np.testing.assert_array_equal(st["extbic_path"], res.extbic_path)
+    assert st["delta"] == res.delta and st["sigma2_g"] == res.sigma2_g
+    with np.load(os.path.join(d, "sweep_h0.npz")) as z:
+        assert set(z.files) == {"key", "ahat_l", "U_l", "diag_l", "proj_l",
+                                "XtHiX_inv"}
+
+
+def test_am_matfree_resumes_a_scan_state_of_the_old_layout(multi,
+                                                            tmp_path):
+    """A scan_state.json laid out as am() has always written it (here by
+    hand, from a one-marker scan's result) resumes to the fresh scan's
+    selections; another trait's is refused."""
+    sim1, pheno = multi
+    kw = dict(maxit=4, engine="matfree", device="cpu")
+    fresh = port.am("y1", sim1.geno, pheno, **kw)
+    one = port.am("y1", sim1.geno, pheno, maxit=1, engine="matfree",
+                  device="cpu")
+    assert one.indices == fresh.indices[:1]
+    y = np.asarray(pheno["y1"], np.float64)
+    state = {"version": 1, "selected": one.indices,
+             "extbic_path": one.extbic_path, "loglik_path": one.loglik_path,
+             "delta": one.delta, "sigma2_g": one.sigma2_g,
+             "sigma2_e": one.sigma2_e,
+             "meta": {"trait_n": 130, "p": 900, "lam_ebic": 1.0,
+                      "trait_sum": round(float(np.sum(y)), 6),
+                      "trait_sq": round(float(y @ y), 6),
+                      "fit_exact": True}}
+    d = tmp_path / "old"
+    d.mkdir()
+    with open(d / "scan_state.json", "w") as f:
+        json.dump(state, f, indent=1)
+    log = str(tmp_path / "resume.jsonl")
+    resumed = port.am("y1", sim1.geno, pheno, ckpt_dir=str(d), resume=True,
+                      log_jsonl=log, **kw)
+    assert resumed.indices == fresh.indices
+    np.testing.assert_allclose(resumed.extbic_path, fresh.extbic_path,
+                               rtol=1e-6)
+    with open(log) as f:
+        assert '"event": "resume"' in f.read()
+    assert not os.path.exists(d / "multi_scan_state.json")
+    with pytest.raises(ValueError, match="refusing to resume"):
+        port.am("y2", sim1.geno, pheno, ckpt_dir=str(d), resume=True, **kw)
+
+
+def test_am_matfree_passes_over_another_engines_scan_state(multi, tmp_path):
+    """A scan_state.json with no trait fingerprint, as the exact engine
+    writes it, is passed over with a warning and the scan starts fresh;
+    a fingerprinted one that holds no exact fit is refused."""
+    sim1, pheno = multi
+    kw = dict(maxit=2, engine="matfree", device="cpu")
+    fresh = port.am("y1", sim1.geno, pheno, **kw)
+    y = np.asarray(pheno["y1"], np.float64)
+    meta = {"trait_n": 130, "p": 900, "lam_ebic": 1.0}
+    d = str(tmp_path / "exact")
+    ckpt.save_scan_state(d, [3], [1.0, 0.5], [-2.0, -1.0], 1.0, 1.0, 1.0,
+                         meta=meta)
+    with pytest.warns(UserWarning, match="no trait fingerprint"):
+        got = port.am("y1", sim1.geno, pheno, ckpt_dir=d, resume=True, **kw)
+    assert got.indices == fresh.indices
+    np.testing.assert_array_equal(got.extbic_path, fresh.extbic_path)
+    ckpt.save_scan_state(d, [3], [1.0, 0.5], [-2.0, -1.0], 1.0, 1.0, 1.0,
+                         meta=dict(meta, trait_sum=round(float(np.sum(y)), 6),
+                                   trait_sq=round(float(y @ y), 6)))
+    with pytest.raises(ValueError, match="no exact fit"):
+        port.am("y1", sim1.geno, pheno, ckpt_dir=d, resume=True, **kw)
+
+
 @pytest.fixture(scope="module")
 def multi_scans(multi):
     sim1, pheno = multi
@@ -483,7 +610,7 @@ def _jax_matfree_fpr(*args, **kw):
 @pytest.mark.parametrize("kind", ["no_zmat", "onehot"])
 def test_fpr4am_matfree_matches_jax(zdesign, kind):
     """The same permutations pick the same candidates; λ_crit at rtol
-    2e-3. With a Zmat the sweeps run one a permutation."""
+    2e-3. With a Zmat too, a chunk's sweeps run as one batched sweep."""
     sim, y_rec, Zs = zdesign
     if kind == "no_zmat":
         args, extra = ("y", sim.geno, {"y": sim.y}), {}
@@ -496,3 +623,21 @@ def test_fpr4am_matfree_matches_jax(zdesign, kind):
     np.testing.assert_allclose(got["lambda_crits"], ref["lambda_crits"],
                                rtol=2e-3)
     assert got["lambda"] == pytest.approx(ref["lambda"], rel=2e-3)
+
+
+def test_fpr4am_zmat_rides_the_batched_sweep(zdesign, monkeypatch):
+    """With a Zmat, a chunk's permutations are swept by ONE lockstep call
+    that carries the Zmat (no sweep a permutation)."""
+    sim, y_rec, Zs = zdesign
+    calls = []
+    orig = bigscan.score_sweep_matfree_multi
+
+    def spy(ctx, backend, ys, *a, **k):
+        calls.append((len(ys), k.get("Z") is not None))
+        return orig(ctx, backend, ys, *a, **k)
+
+    monkeypatch.setattr(bigscan, "score_sweep_matfree_multi", spy)
+    out = port.fpr4am("y", sim.geno, {"y": y_rec}, Zmat=Zs["onehot"],
+                      numreps=3, seed=5, engine="matfree", device="cpu")
+    assert calls == [(3, True)]
+    assert len(out["candidates"]) == 3

@@ -172,10 +172,20 @@ def test_the_lockstep_spans_and_counters(cell):
 
 
 def test_the_single_trait_scan_logs_none_of_them(singles):
+    """A single-trait scan is the lockstep loop at R = 1: its spans and
+    counters count its one trait, none of another: a union basis of its
+    own [X y] block an initial fit and a refit, trait 0's fits, one-trait
+    stat passes."""
     spans = _spans(singles[0][1])
-    assert not {"union_basis", "trait_fit"} & {e["phase"] for e in spans}
+    union = [e for e in spans if e["phase"] == "union_basis"]
+    assert [(e["cols"], e["m"]) for e in union] == [(2, 128), (3, 64),
+                                                    (4, 64), (5, 64)]
+    fits = [e for e in spans if e["phase"] == "trait_fit"]
+    assert [e["trait"] for e in fits] == [0] * (1 + MAXIT)
     stat = [e for e in spans if e["phase"] == "stat_pass"]
-    assert stat and not {"cols", "traits", "launches"} & set(stat[0])
+    assert len(stat) == MAXIT
+    assert all((e["cols"], e["traits"], e["launches"]) == (137, 1, 1)
+               for e in stat)
 
 
 def test_a_union_block_over_the_budget_falls_back(cell, tmp_path):

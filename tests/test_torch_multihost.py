@@ -336,7 +336,8 @@ def _parked(fn):
 
 
 engine_torch.ShardedScan.sweep_eig = _parked(engine_torch.ShardedScan.sweep_eig)
-bigscan.score_sweep_matfree = _parked(bigscan.score_sweep_matfree)
+bigscan.score_sweep_matfree_multi = _parked(
+    bigscan.score_sweep_matfree_multi)
 """
 
 _RESUME = {

@@ -4,7 +4,7 @@ Pallas kernels (ops/pallas_packed, interpret mode on the CPU).
 On the CPU each wrapper runs its plain PyTorch version; the same inputs,
 made with numpy from a seed, go through both packages. The JAX stack is
 padded to its Pallas blocks and takes its skinny operand in plane order;
-the port's stack comes from ``engine_torch.stack_from_jax`` and works in
+the port's stack comes from ``jax_stack.stack_from_jax`` and works in
 natural genotype order. Tolerances are those of tests/test_pallas_packed.py.
 The CUDA kernels themselves are held against these plain versions on the
 card by tests/test_torch_cuda.py."""
@@ -20,10 +20,9 @@ import jax.numpy as jnp  # noqa: E402
 from eagleeverything_tpu.models import engine_jax  # noqa: E402
 from eagleeverything_tpu.ops import pallas_packed as pp  # noqa: E402
 from eagleeverything_tpu_torch.models import engine_torch  # noqa: E402
-from eagleeverything_tpu_torch.models.engine_torch import (  # noqa: E402
-    stack_from_jax)
 from eagleeverything_tpu_torch.ops import packed  # noqa: E402
 from eagleeverything_tpu_torch.utils.config import EagleConfig  # noqa: E402
+from jax_stack import stack_from_jax  # noqa: E402
 
 N, P = 1000, 400          # the logical shape of tests/test_pallas_packed.py
 P_PAD = pp.BLK_P

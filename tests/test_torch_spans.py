@@ -23,12 +23,16 @@ TREE = ("start_s", "id", "parent", "call", "wait_s", "h2d_bytes",
 # of the call's root, by engine
 TOP = {"jax": {"mmt", "eigh", "sweep"}, "matfree": {"context", "reml",
                                                     "sweep", "refit"}}
-# spans inside them: name → its parent's name
+# spans inside them: name → its parent's name. One trait's matrix-free
+# fit is the lockstep loop's at R = 1: its basis and δ search sit inside
+# ``reml`` one level down, in ``union_basis`` and ``trait_fit``
 INNER = {"jax": {"stack": "mmt", "k_to_host": "mmt",
                  "eigh_solve": "eigh", "sweep_state": "sweep"},
          "matfree": {"s0": "context", "stack": "s0",
-                     "krylov_basis": "reml", "delta_search": "reml",
-                     "polish": "reml", "solve": "sweep", "probes": "sweep",
+                     "union_basis": "reml", "trait_fit": "reml",
+                     "krylov_basis": "union_basis",
+                     "delta_search": "trait_fit", "polish": "trait_fit",
+                     "solve": "sweep", "probes": "sweep",
                      "stat_pass": "sweep", "rescore": "sweep",
                      "escalate": "sweep"}}
 
