@@ -16,13 +16,15 @@ Phases, each fatal when its check fails:
    one shape with a single split of packed_tdot; r ∈ WIDTHS_RAGGED, every
    column tiling and its edge, and three 144-wide tiles; 3% missing codes,
    one all-missing SNP), and packed_dot and packed_tdot each against itself
-   bit for bit;
+   bit for bit, packed_dot's narrow design (r <= 32) against its wide one;
 4. at the main path's shapes (50 000 individuals × 262 144 SNPs, r ∈
    WIDTHS_MAIN, and packed_dot alone at the multi-trait widths
    WIDTHS_K1_WIDE, bit for bit against itself there): check each kernel
    against its plain version again and time it (CUDA events, median of 10)
    beside its bound, its plain version and one ``torch.matmul`` on the
-   unpacked f32 W (a yardstick the port never calls);
+   unpacked f32 W (a yardstick the port never calls); packed_dot at r <= 32
+   takes its narrow design here and is timed through the wide one too,
+   both bit for bit the same;
 4b. the kernels at BASELINE config 4's axes (AXIS_SHAPES: K1, K2 and K3 at
    500 000 × 32 768, K1 at 2 048 × 5 000 000), each timed beside its bound
    and ``torch.matmul`` on the f32 W a row block at a time (LIB_BLOCKS,
@@ -36,8 +38,9 @@ Phases, each fatal when its check fails:
 6. the matrix-free path as a user runs it: ``am(engine="auto")`` on a
    cohort of 50 000 × p generated on the card from ``--seed`` (50 000 >
    matfree_min_n, so auto takes the matrix-free engine), with the kernels'
-   launch counts read around exactly that call; every selected SNP must be
-   a planted QTL. Before it, the device Lanczos of the REML's [1 y] block
+   launch counts, and packed_dot's by design, read around exactly that
+   call (the narrow design must have run); every selected SNP must be a
+   planted QTL. Before it, the device Lanczos of the REML's [1 y] block
    (128 steps) is held to the host f64 recurrence over the same card
    matvec; after it, a second call (maxit 2) traces iteration 1 (a sweep
    and its refit) with ``torch.profiler``, summarised by its top device
@@ -425,6 +428,30 @@ def executed_flops(kind: str, n: int, p: int, r: int) -> int:
     return (4 if kind == "packed_dot" else 3) * 2 * p * n * r
 
 
+@contextlib.contextmanager
+def k1_design(packed, design: str):
+    """packed_dot through one of its designs ("narrow", "wide") whatever
+    the shapes, for the length of the block (both give the same bits)."""
+    choose = packed.k1_path
+    packed.k1_path = lambda *_: design
+    try:
+        yield
+    finally:
+        packed.k1_path = choose
+
+
+def k1_taken(packed, before: dict) -> str:
+    """The packed_dot design that launched since ``before`` (a copy of
+    packed.K1_PATHS), the one with more launches."""
+    return max(packed.K1_PATHS,
+               key=lambda k: packed.K1_PATHS[k] - before[k])
+
+
+def same_bits(torch, a, b) -> bool:
+    return torch.equal(a.contiguous().view(torch.int32),
+                       b.contiguous().view(torch.int32))
+
+
 class OpTimer:
     """Counts and times the calls of some functions for the length of a
     ``with`` block: each named attribute of each object is replaced by a
@@ -773,6 +800,15 @@ def ragged_phase(torch, packed, dev, seed: int) -> dict:
                   f"packed_dot not bitwise repeatable at n={n} r={r}")
             check(torch.equal(out, again),
                   f"packed_tdot not bitwise repeatable at n={n} r={r}")
+            if r <= 32:
+                # the narrow design, forced at these p, gives the wide bits
+                with k1_design(packed, "narrow"):
+                    D_narrow = packed.packed_dot(stack, A, means, n)
+                with k1_design(packed, "wide"):
+                    D_wide = packed.packed_dot(stack, A, means, n)
+                check(same_bits(torch, D_narrow, D_wide),
+                      f"narrow packed_dot differs from the wide design at "
+                      f"n={n} p={p} r={r}")
             cases = (
                 ("packed_dot", D, packed.packed_dot_plain(stack, A, means, n)),
                 ("packed_tdot", out,
@@ -828,7 +864,9 @@ def timing_phase(torch, packed, dev, n: int, p: int, seed: int) -> dict:
         X = inputs[r]
         for name in these:
             kern, plain = ops[name]
+            before = dict(packed.K1_PATHS)
             k_out, k_ms = timed(torch, lambda: kern(X), 10, 2)
+            design = k1_taken(packed, before)
             # one call: the plain versions take seconds a call (2 s at
             # r = 8), and three of each took 80 s of the time limit
             p_out, p_ms = timed(torch, lambda: plain(X), 1, 0)
@@ -844,6 +882,16 @@ def timing_phase(torch, packed, dev, n: int, p: int, seed: int) -> dict:
                             "bound_by": b_by, "bound_unit": b_unit,
                             "executed_tflops": executed_flops(name, n, p, r)
                             / k_ms / 1e9}
+            if name == "packed_dot" and r <= 32:
+                # K1's design at these shapes, and the wide one beside it
+                # (the same bits)
+                res[name][r]["design"] = design
+                with k1_design(packed, "wide"):
+                    w_out, w_ms = timed(torch, lambda: kern(X), 10, 2)
+                check(same_bits(torch, w_out, k_out),
+                      f"packed_dot's designs differ at n={n} p={p} r={r}")
+                res[name][r]["wide_ms"] = w_ms
+                del w_out
             outs[name, r] = k_out
             del p_out
     # the yardstick: one torch.matmul on the already-unpacked f32 W
@@ -869,8 +917,10 @@ def timing_phase(torch, packed, dev, n: int, p: int, seed: int) -> dict:
     torch.cuda.empty_cache()
     for name, by_r in res.items():
         for r, m in by_r.items():
-            print(f"{name:14s} r={r:4d}  kernel {m['ms']:9.3f} ms  plain "
-                  f"{m['plain_ms']:9.3f} ms  torch.matmul on f32 W "
+            design = (f"  ({m['design']} design; wide "
+                      f"{m['wide_ms']:.3f} ms)" if "wide_ms" in m else "")
+            print(f"{name:14s} r={r:4d}  kernel {m['ms']:9.3f} ms{design}  "
+                  f"plain {m['plain_ms']:9.3f} ms  torch.matmul on f32 W "
                   f"{m['library_ms']:9.3f} ms  bound {m['bound_ms']:8.3f} ms "
                   f"({m['bound_by']} on {m['bound_unit']}, "
                   f"{m['bound_ms'] / m['ms']:.1%} of it)  executes "
@@ -913,8 +963,10 @@ def axis_timing_phase(torch, packed, dev, seed: int) -> dict:
                 fn = getattr(packed, name)
                 plain = getattr(packed, f"{name}_plain")
                 A = operand(name, r)
+                before = dict(packed.K1_PATHS)
                 k_out, ms = timed(torch, lambda: fn(stack, A, means, n), 10,
                                   2)
+                design = k1_taken(packed, before)
                 check(torch.equal(k_out, fn(stack, A, means, n)),
                       f"{name} not bitwise repeatable at n={n} p={p} r={r}")
                 p_out, p_ms = timed(torch, lambda: plain(stack, A, means, n),
@@ -930,6 +982,8 @@ def axis_timing_phase(torch, packed, dev, seed: int) -> dict:
                                 "rel_err": rel,
                                 "executed_tflops": executed_flops(
                                     name, n, p, r) / ms / 1e9}
+                if name == "packed_dot":
+                    res[name][r]["design"] = design
                 if name == "packed_tdot":
                     res[name][r]["splits"] = \
                         packed._tdot_lib().ee_packed_tdot_splits(p, n, r)
@@ -978,6 +1032,7 @@ def axis_timing_phase(torch, packed, dev, seed: int) -> dict:
                   f"{m['bound_ms'] / m['ms']:.1%} of it)  executes "
                   f"{m['executed_tflops']:.1f} TFLOP/s  "
                   + (f"split-K {m['splits']}  " if "splits" in m else "")
+                  + (f"{m['design']} design  " if "design" in m else "")
                   + f"vs plain: max abs err {m['max_abs_err']:.2e} (rel "
                   f"{m['rel_err']:.2e}); vs torch.matmul: rel {rel:.2e}",
                   flush=True)
@@ -1193,6 +1248,7 @@ def main_path_phase(torch, ep, packed, tmp: str, n: int, p: int, seed: int,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(packed.LAUNCHES)
+    k1_designs = dict(packed.K1_PATHS)
     peak = torch.cuda.max_memory_allocated()
     events = read_log(log)
     for e in events:
@@ -1206,7 +1262,8 @@ def main_path_phase(torch, ep, packed, tmp: str, n: int, p: int, seed: int,
             print(f"  stack passes {e['total']}")
     print(f"selected {res.indices} (planted {c.qtl_idx.tolist()})")
     print(f"extBIC path {res.extbic_path}")
-    print(f"am() wall {wall:.1f} s; launches {launches}; peak device memory "
+    print(f"am() wall {wall:.1f} s; launches {launches}; packed_dot by "
+          f"design {k1_designs}; peak device memory "
           f"{peak / 1e9:.2f} GB (stack {stack_gb:.2f} GB)", flush=True)
     check(len(res.indices) >= 1, "the main-path scan selected nothing")
     check(set(res.indices) <= set(int(q) for q in c.qtl_idx),
@@ -1216,13 +1273,19 @@ def main_path_phase(torch, ep, packed, tmp: str, n: int, p: int, seed: int,
     for name in KERNELS:
         check(launches[name] >= 1,
               f"{name} was never launched on the main path")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = packed._dot_lib().ee_packed_dot_narrow_rows(8)
+    check(k1_designs["narrow"] >= 1
+          or packed.k1_path(p, rows, sms, True) == "wide",
+          "packed_dot never took its narrow design on the main path")
     # the trace in a call of its own (maxit 2, iteration 1 traced), so that
     # the profiler's start-up and cost stay out of the walls above
     with IterationTrace(torch, bigscan, 1,
                         os.path.join(tmp, "iteration_trace.json")) as tr:
         ep.am("y", handle, {"y": c.y}, maxit=2, engine="auto")
     trace = print_trace(tr)
-    return {"launches": launches, "wall_s": wall, "peak_bytes": peak,
+    return {"launches": launches, "k1_designs": k1_designs,
+            "wall_s": wall, "peak_bytes": peak,
             "indices": res.indices, "extbic_path": res.extbic_path,
             "cohort": c, "lanczos": lz,
             "trace": trace, "phases": scan_phases(events)}
@@ -3710,6 +3773,7 @@ def run(args) -> None:
                       f"({o['matfree']['allreduces']} all-reduces, "
                       f"{o['matfree']['allreduce_ms']:.0f} ms)"
                       for o in ranks["ranks"]))
+    print(f"packed_dot by design on the main path: {main['k1_designs']}")
     print("matrix-free walls: am() " + f"{main['wall_s']:.1f} s (phases "
           + ", ".join(f"{k} " + " / ".join(f"{w:.2f}" for w in v)
                       for k, v in main["phases"].items())

@@ -16,7 +16,8 @@ The TPU kernels took the skinny operand in a permuted "plane" order; these
 take and return it in natural genotype order. Each wrapper takes its
 plain PyTorch version (unpack + ``torch.matmul``) for a tensor on the CPU
 and launches its kernel for a CUDA tensor; there is no fallback between
-the two. ``LAUNCHES`` counts kernel launches per wrapper.
+the two. ``LAUNCHES`` counts kernel launches per wrapper, ``K1_PATHS``
+``packed_dot``'s launches by design (:func:`k1_path`).
 
 Numerics: both kernels run on the bf16 tensor cores with fp32
 accumulation and split each operand into bf16 pieces: W = W_hi + W_lo
@@ -34,7 +35,11 @@ scratch: the bf16 planes of X (rows padded to the 32-deep k-step, columns
 to whole column tiles) and, for ``packed_tdot``'s split-K, ``nsplit·n·r``
 f32 partials that a second launch adds in a fixed order. ``packed_dot``
 needs no split: one thread sums each output element over all n genotypes.
-Both are bitwise repeatable.
+Both are bitwise repeatable. ``packed_dot`` has two designs with the same
+MMAs in the same order, so the same bits: a narrow one for column tiles of
+at most 32 that unpacks W straight into the tensor cores' operand
+registers, and the wide one for every width; :func:`k1_path` picks one
+from the shapes and the stack's alignment.
 """
 
 from __future__ import annotations
@@ -46,11 +51,26 @@ import torch
 PAD_WORD = 0x55555555        # sixteen het codes → W = 0
 
 LAUNCHES = {"packed_dot": 0, "packed_tdot": 0}
+K1_PATHS = {"narrow": 0, "wide": 0}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, K1_PATHS):
+        for k in counts:
+            counts[k] = 0
+
+
+def k1_path(p: int, rows: int, sms: int, aligned: bool) -> str:
+    """The packed_dot design for p SNP rows on a card of ``sms`` SMs, where
+    the narrow design takes ``rows`` SNP rows a block at the launch's width
+    (0 above 32 columns, which it does not take): "narrow" where its blocks
+    number at least half the SMs and the stack starts on a 16-byte boundary
+    (``aligned``: it copies the words 16 bytes at a time), else "wide".
+    Under half a wave the wide kernel's blocks of 128 rows finish first at
+    16 and 32 columns, and lose by at most 13% at 8 (one rule for every
+    width). Both give the same bits."""
+    return ("narrow" if rows and aligned and 2 * -(-p // rows) >= sms
+            else "wide")
 
 
 def words_per_row(n: int) -> int:
@@ -211,12 +231,14 @@ def _dot_lib():
     lib = build.load("packed_dot")
     for fn, nargs in (("ee_packed_dot_split_pieces", 0),
                       ("ee_packed_dot_split_rows", 1),
-                      ("ee_packed_dot_split_cols", 1)):
+                      ("ee_packed_dot_split_cols", 1),
+                      ("ee_packed_dot_narrow_rows", 1)):
         getattr(lib, fn).argtypes = [ctypes.c_int] * nargs
         getattr(lib, fn).restype = ctypes.c_int
-    lib.ee_packed_dot.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
-        + [ctypes.c_void_p]
-    lib.ee_packed_dot.restype = ctypes.c_int
+    for fn in ("ee_packed_dot", "ee_packed_dot_narrow"):
+        getattr(lib, fn).argtypes = [ctypes.c_void_p] * 5 \
+            + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        getattr(lib, fn).restype = ctypes.c_int
     return lib
 
 
@@ -243,6 +265,11 @@ def packed_dot(Wp: torch.Tensor, A: torch.Tensor, means: torch.Tensor,
     lib = _dot_lib()
     p, nw = Wp.shape
     r = A.shape[1]
+    path = k1_path(p, lib.ee_packed_dot_narrow_rows(r),
+                   torch.cuda.get_device_properties(
+                       Wp.device).multi_processor_count,
+                   Wp.data_ptr() % 16 == 0)
+    launch = lib.ee_packed_dot_narrow if path == "narrow" else lib.ee_packed_dot
     # launch on the operands' card, whichever card is current
     with torch.cuda.device(Wp.device):
         D = torch.empty((p, r), dtype=torch.float32, device=A.device)
@@ -251,11 +278,12 @@ def packed_dot(Wp: torch.Tensor, A: torch.Tensor, means: torch.Tensor,
                              lib.ee_packed_dot_split_rows(n),
                              lib.ee_packed_dot_split_cols(r)),
                             dtype=torch.bfloat16, device=A.device)
-        rc = lib.ee_packed_dot(Wp.data_ptr(), A.data_ptr(), means.data_ptr(),
-                               split.data_ptr(), D.data_ptr(), p, nw, n, r,
-                               torch.cuda.current_stream().cuda_stream)
+        rc = launch(Wp.data_ptr(), A.data_ptr(), means.data_ptr(),
+                    split.data_ptr(), D.data_ptr(), p, nw, n, r,
+                    torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "packed_dot", lib)
     LAUNCHES["packed_dot"] += 1
+    K1_PATHS[path] += 1
     return D
 
 

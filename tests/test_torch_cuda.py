@@ -342,12 +342,13 @@ def test_exact_am_on_card_matches_cpu(cuda, host_eigh_max_n):
                                rtol=1e-6 if host_eigh_max_n == 8192 else 1e-4)
 
 
-@pytest.mark.parametrize("r", [2, 8, 16, 32, 64, 137, 145])
+@pytest.mark.parametrize("r", [1, 2, 8, 9, 16, 17, 32, 64, 137, 145])
 @pytest.mark.parametrize("kernel", ["packed_dot", "packed_tdot"])
-def test_bitwise_repeatable(cuda, kernel, r):
+def test_bitwise_repeatable(cuda, monkeypatch, kernel, r):
     """No float atomics: packed_dot sums each output element in one thread,
     packed_tdot adds its splits in a fixed order, so two calls on the same
-    operands give the same bits at every column tiling."""
+    operands give the same bits at every column tiling; at r <= 32 through
+    either of packed_dot's designs, the same bits."""
     _, Wp, means, rng = _scan(1001, cuda)
     rows = 1001 if kernel == "packed_dot" else P
     X = torch.from_numpy(rng.standard_normal((rows, r)).astype(np.float32)
@@ -357,6 +358,123 @@ def test_bitwise_repeatable(cuda, kernel, r):
     b = fn(Wp, X, means, 1001)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
+    if kernel == "packed_dot" and r <= 32:
+        monkeypatch.setattr(packed, "k1_path", _forced("narrow"))
+        c = fn(Wp, X, means, 1001)
+        d = fn(Wp, X, means, 1001)
+        torch.cuda.synchronize()
+        for got in (c, d):
+            assert torch.equal(got.view(torch.int32), a.view(torch.int32))
+
+
+def _forced(design: str):
+    """A k1_path that takes one packed_dot design whatever the shapes."""
+    return lambda *_: design
+
+
+_STACKS: dict = {}
+
+
+def _random_stack(n: int, p: int, seed: int, device) -> tuple:
+    """A packed stack (p, nw) of random codes as the store packs them (3%
+    missing, SNP 0 all missing, code-0 pad genotypes in each row's last real
+    byte, het pad bytes after it) and its row means, kept by shape."""
+    key = (n, p, seed)
+    if key not in _STACKS:
+        rng = np.random.default_rng(seed)
+        nw = packed.words_per_row(n)
+        codes = np.full((p, nw * 16), 1, dtype=np.uint8)
+        codes[:, n : -(-n // 4) * 4] = 0
+        c = rng.integers(0, 3, size=(p, n), dtype=np.uint8)
+        c[rng.random((p, n), dtype=np.float32) < 0.03] = 3
+        c[0] = 3
+        codes[:, :n] = c
+        q = codes.reshape(p, nw * 4, 4)
+        byts = q[..., 0] | (q[..., 1] << 2) | (q[..., 2] << 4) \
+            | (q[..., 3] << 6)
+        Wp = torch.from_numpy(np.ascontiguousarray(byts).view(np.int32)
+                              ).to(device)
+        _STACKS[key] = (Wp, packed.row_means(Wp, n))
+    return _STACKS[key]
+
+
+# chip_smoke.py's SHAPES_RAGGED: n no multiple of 16 (1001); p no multiple
+# of any narrow row block (20 011, 3001) and below one (201)
+NARROW_SHAPES = [(1001, 20011), (50000, 3001), (50000, 201)]
+
+
+@pytest.mark.parametrize("shape", NARROW_SHAPES)
+@pytest.mark.parametrize("r", [1, 2, 8, 9, 16, 17, 32])
+def test_packed_dot_narrow_matches_wide_bits(cuda, monkeypatch, shape, r):
+    """The narrow K1 keeps the wide design's arithmetic: through it,
+    packed_dot(Wp, A[:, :r]) equals the first r columns of packed_dot(Wp,
+    A) at 40 and 137 columns (one wide tile of 64 and one of 144) bit for
+    bit, twice; the all-missing SNP's row is +0.0."""
+    n, p = shape
+    Wp, means = _random_stack(n, p, 7, cuda)
+    g = torch.Generator(device=cuda).manual_seed(r)
+    A = torch.randn((n, 137), generator=g, device=cuda)
+    monkeypatch.setattr(packed, "k1_path", _forced("wide"))
+    wide = [packed.packed_dot(Wp, A[:, :c].contiguous(), means, n)[:, :r]
+            for c in (40, 137)]
+    monkeypatch.setattr(packed, "k1_path", _forced("narrow"))
+    packed.reset_launches()
+    Ar = A[:, :r].contiguous()
+    D = packed.packed_dot(Wp, Ar, means, n)
+    again = packed.packed_dot(Wp, Ar, means, n)
+    torch.cuda.synchronize()
+    assert packed.K1_PATHS == {"narrow": 2, "wide": 0}
+    bits = D.view(torch.int32)
+    for ref in wide + [again]:
+        assert torch.equal(bits, ref.contiguous().view(torch.int32))
+    assert not bits[0].any()
+
+
+def test_k1_path_counter_follows_the_choice(cuda):
+    """Each packed_dot launch counts under the design k1_path picks for its
+    shapes on this card, with the narrow tiling the library reports:
+    narrow at r <= 32 once its row blocks number half the SMs, else wide."""
+    lib = packed._dot_lib()
+    assert all(lib.ee_packed_dot_narrow_rows(r) > 0
+               for r in (1, 8, 9, 16, 17, 32))
+    assert lib.ee_packed_dot_narrow_rows(33) == 0
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    n = 64
+    rows = lib.ee_packed_dot_narrow_rows(8)
+    half = rows * -(-sms // 2)
+    Wp, means = _random_stack(n, half, 3, cuda)
+    A = torch.randn((n, 40), device=cuda)
+    packed.reset_launches()
+    expected = {"narrow": 0, "wide": 0}
+    for p, r in ((half, 8), (half, 40), (half - rows, 8), (half, 32)):
+        packed.packed_dot(Wp[:p], A[:, :r].contiguous(), means[:p], n)
+        expected[packed.k1_path(p, lib.ee_packed_dot_narrow_rows(r), sms,
+                                True)] += 1
+    torch.cuda.synchronize()
+    assert expected["narrow"] >= 1 and expected["wide"] >= 2
+    assert packed.K1_PATHS == expected
+    assert packed.LAUNCHES == {"packed_dot": 4, "packed_tdot": 0}
+
+
+def test_packed_dot_takes_a_misaligned_view(cuda):
+    """A view of a stack from row 1 with an odd number of words a row does
+    not start on a 16-byte boundary: packed_dot takes the wide design there,
+    where the shapes alone would take the narrow one, and gives the bits of
+    the same rows copied to a fresh, aligned stack."""
+    lib = packed._dot_lib()
+    n = 1001                                  # 63 words a row
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    p = lib.ee_packed_dot_narrow_rows(8) * sms + 1
+    Wp, means = _random_stack(n, p, 11, cuda)
+    view, m = Wp[1:], means[1:]
+    assert packed.words_per_row(n) % 2 == 1 and view.data_ptr() % 16 != 0
+    A = torch.randn((n, 8), device=cuda)
+    packed.reset_launches()
+    got = packed.packed_dot(view, A, m, n)
+    ref = packed.packed_dot(view.clone(), A, m, n)
+    torch.cuda.synchronize()
+    assert packed.K1_PATHS == {"narrow": 1, "wide": 1}
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
 
 
 @pytest.mark.parametrize("r", [548, 640])

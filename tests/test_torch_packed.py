@@ -268,3 +268,46 @@ def test_wrappers_reject_bad_operands(stacks):
         packed.packed_dot(Wt, A, mt[:-1], N)
     with pytest.raises(ValueError, match="unsupported device"):
         packed.packed_dot(Wt.to("meta"), A.to("meta"), mt.to("meta"), N)
+
+
+# the narrow packed_dot's SNP rows a block by width, as its library reports
+# them (ee_packed_dot_narrow_rows; NarrowTile in csrc/packed_dot.cu): 256
+# at r <= 8, 512 at r <= 16, 256 at r <= 32, none above
+NARROW_ROWS = {8: 256, 16: 512, 32: 256, 33: 0, 144: 0}
+
+# (p, r, design) on a card of 132 SMs: narrow from 66 blocks (half a wave)
+K1_CHOICES = [(262144, 8, "narrow"), (262144, 32, "narrow"),
+              (262144, 33, "wide"), (32768, 8, "narrow"),
+              (32768, 16, "wide"), (32768, 32, "narrow"),
+              (16641, 8, "narrow"), (16640, 8, "wide"),
+              (33281, 16, "narrow"), (33280, 16, "wide"),
+              (5000000, 144, "wide")]
+
+
+@pytest.mark.parametrize("p,r,design", K1_CHOICES)
+def test_k1_path_follows_the_shapes(p, r, design):
+    """BASELINE config 3's 262 144 SNPs take the narrow K1 at every width
+    up to 32, none above; config 4's n axis (32 768 SNPs) takes it at r = 8
+    and 32 (128 blocks) but not at 16 (64 blocks of 512 rows); the edge is
+    half a wave of blocks."""
+    assert packed.k1_path(p, NARROW_ROWS[r], 132, True) == design
+
+
+@pytest.mark.parametrize("r", [8, 16, 32, 33, 144])
+@pytest.mark.parametrize("p", [16640, 262144])
+def test_k1_path_keeps_a_misaligned_stack_wide(p, r):
+    """A stack that does not start on a 16-byte boundary (a view from row
+    k with k·nw no multiple of 4) takes the wide design at every shape."""
+    assert packed.k1_path(p, NARROW_ROWS[r], 132, False) == "wide"
+
+
+def test_reset_launches_clears_the_k1_paths(stacks):
+    """The per-design count sits beside LAUNCHES, whose keys stay; a CPU
+    call runs the plain version and counts no launch of either."""
+    _, _, _, Wt, mt = stacks
+    packed.K1_PATHS["narrow"] = 3
+    packed.reset_launches()
+    assert packed.K1_PATHS == {"narrow": 0, "wide": 0}
+    assert set(packed.LAUNCHES) == {"packed_dot", "packed_tdot"}
+    packed.packed_dot(Wt, torch.zeros((N, 4)), mt, N)
+    assert packed.K1_PATHS == {"narrow": 0, "wide": 0}
